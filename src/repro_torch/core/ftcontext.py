@@ -1,0 +1,241 @@
+"""FTContext — the fault-aware execution layer.
+
+One object carries the fault-tolerance story of a model call:
+
+  * the :class:`~repro_torch.core.engine.FaultState` (swapped per serving
+    step with :meth:`FTContext.with_state`);
+  * the :class:`~repro_torch.core.engine.HyCAConfig` (array geometry, DPPU
+    capacity, off/protected/unprotected mode);
+  * a :class:`ProtectPolicy` naming which call *sites* run on the protected
+    array and which leading fraction of the layer stack is protected;
+  * the dispatch: ``plain`` (no fault machinery), ``twopass`` (the engine's
+    corrupt + overwrite + prune) or ``fused`` (one pass through
+    :func:`~repro_torch.kernels.ft_matmul.ft_matmul`: the CUDA kernel for
+    CUDA tensors, its plain twin for CPU tensors).
+
+Models route every weight matmul through ``ftc.matmul(x, w, site=...)``;
+``ftc=None`` is plain ``torch.matmul``.
+
+Invariant: with ``mode="protected"`` and #faults <= DPPU capacity, every
+dispatch is bit-exact with ``mode="off"``.
+
+Not in this slice (they raise ``NotImplementedError``): the MoE expert
+``einsum``, ABFT checksum lanes (``abft_matmul``), device counters and the
+call ledger, and kernel-block autotuning.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+
+from repro_torch.core.engine import (
+    FaultState,
+    HyCAConfig,
+    RepairPlan,
+    fault_mask_grids,
+    fault_meta_grid,
+    hyca_matmul,
+    validate_fault_state,
+    validate_repair_plan,
+)
+from repro_torch.kernels.ft_matmul import ft_matmul
+from repro_torch.obs.fallbacks import record_site_fallback
+
+SITES = (
+    "attn.qkv",   # Q/K/V projections
+    "attn.out",   # attention output projection
+    "ffn",        # dense FFN up/gate/down
+    "moe.router", # MoE router logits
+    "moe.expert", # batched per-expert matmuls
+    "ssm.in",     # SSM/RWKV input-side projections
+    "ssm.out",    # SSM/RWKV output projections
+    "head",       # LM head
+    "mm.proj",    # multimodal projector
+)
+
+DISPATCHES = ("plain", "twopass", "fused")
+
+
+@dataclasses.dataclass(frozen=True)
+class ProtectPolicy:
+    """Per-site / per-layer protection policy.
+
+    ``sites``: which call sites run on the protected array (``None`` = all of
+    :data:`SITES`).  ``layer_fraction``: leading fraction of the layer stack
+    that runs protected; the remaining layers use plain matmuls.  ``abft``:
+    ABFT checksum lanes, which come with the transients slice.
+    """
+
+    sites: frozenset[str] | None = None
+    layer_fraction: float = 1.0
+    abft: bool = False
+
+    def __post_init__(self):
+        if self.sites is not None:
+            unknown = set(self.sites) - set(SITES)
+            if unknown:
+                raise ValueError(f"unknown protection sites {sorted(unknown)}; known: {SITES}")
+        if not 0.0 <= self.layer_fraction <= 1.0:
+            raise ValueError(f"layer_fraction must be in [0, 1], got {self.layer_fraction}")
+
+    def covers(self, site: str) -> bool:
+        if site not in SITES:
+            raise ValueError(f"unknown site {site!r}; known: {SITES}")
+        return self.sites is None or site in self.sites
+
+    def n_protected_layers(self, n_layers: int) -> int:
+        return min(n_layers, int(math.ceil(self.layer_fraction * n_layers)))
+
+
+def _as_2d(x: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ...]]:
+    lead = tuple(x.shape[:-1])
+    return x.reshape(-1, x.shape[-1]), lead
+
+
+@dataclasses.dataclass
+class FTContext:
+    """Fault-aware execution context.  Build with :func:`build_ftcontext`,
+    which validates the fault table against the array geometry."""
+
+    state: FaultState | None
+    hyca: HyCAConfig
+    policy: ProtectPolicy = dataclasses.field(default_factory=ProtectPolicy)
+    dispatch: str = "twopass"
+    # one RepairPlan for all sites, or {site: RepairPlan}
+    plan: object = None
+    # per-plan AND/OR mask pairs of the fused epilogue, computed once per
+    # context, not once per matmul (the serving bundle keeps one context per
+    # fault-state swap)
+    _grids: list = dataclasses.field(default_factory=list, init=False, repr=False, compare=False)
+
+    @property
+    def mode(self) -> str:
+        return self.hyca.mode
+
+    @property
+    def active(self) -> bool:
+        """Does any matmul route through the fault-aware path at all?"""
+        return self.state is not None and self.hyca.mode != "off"
+
+    def protects(self, site: str) -> bool:
+        return self.active and self.policy.covers(site)
+
+    def n_protected_layers(self, n_layers: int) -> int:
+        if not self.active:
+            return 0
+        return self.policy.n_protected_layers(n_layers)
+
+    def with_state(self, state: FaultState | None) -> "FTContext":
+        """Same context, new fault table (the per-step serving update)."""
+        return dataclasses.replace(self, state=state)
+
+    def with_plan(self, plan) -> "FTContext":
+        """Same context, new repair plan."""
+        return dataclasses.replace(self, plan=plan)
+
+    def with_counters(self, counters) -> "FTContext":
+        raise NotImplementedError("device-side FT counters come with the observability slice")
+
+    def with_ledger(self, ledger) -> "FTContext":
+        raise NotImplementedError("the static call ledger comes with the observability slice")
+
+    def accumulate(self):
+        raise NotImplementedError("counter accumulation comes with the observability slice")
+
+    def _plan_for(self, site: str) -> RepairPlan | None:
+        if self.plan is None or isinstance(self.plan, RepairPlan):
+            return self.plan
+        return self.plan.get(site)
+
+    # ------------------------------------------------------------------ #
+    # op dispatch
+    # ------------------------------------------------------------------ #
+    def matmul(self, x: torch.Tensor, w: torch.Tensor, *, site: str) -> torch.Tensor:
+        """``x @ w`` with ``x: (..., K)`` and ``w: (K, N)``, routed through the
+        protected virtual array when the policy covers ``site``.  The result
+        has ``x``'s dtype."""
+        if not self.protects(site):
+            return torch.matmul(x, w)
+        plan = self._plan_for(site)
+        if self.dispatch == "plain":
+            out = torch.matmul(x, w)
+        elif self.dispatch == "twopass":
+            out = hyca_matmul(x, w, self.state, cfg=self.hyca, plan=plan)
+        elif self.dispatch == "fused":
+            out = self._fused(x, w, plan, site=site)
+        else:
+            raise ValueError(f"unknown dispatch {self.dispatch!r}; known: {DISPATCHES}")
+        return out.to(x.dtype)
+
+    def abft_matmul(self, x, w, *, site: str, wc=None):
+        raise NotImplementedError("ABFT checksum lanes come with the transients slice")
+
+    def einsum(self, spec: str, x, w, *, site: str):
+        raise NotImplementedError(
+            "batched expert einsums (ft_matmul_batched) come with the MoE slice"
+        )
+
+    # ------------------------------------------------------------------ #
+    # fused dispatch
+    # ------------------------------------------------------------------ #
+    def mask_grids(self, plan: RepairPlan | None) -> tuple[torch.Tensor, torch.Tensor]:
+        """The (rows, cols) int32 AND/OR pair for ``plan`` under the current
+        state: ``fault_meta_grid`` lowered by ``fault_mask_grids``."""
+        for p, grids in self._grids:
+            if p is plan:
+                return grids
+        grids = fault_mask_grids(fault_meta_grid(self.state, self.hyca, plan))
+        self._grids.append((plan, grids))
+        return grids
+
+    def _fused(self, x: torch.Tensor, w: torch.Tensor, plan: RepairPlan | None = None,
+               *, site: str = "?") -> torch.Tensor:
+        if not x.dtype.is_floating_point or not w.dtype.is_floating_point:
+            # the kernel accumulates f32; integer datapaths keep the engine's
+            # exact int32 stuck-at semantics through the two-pass path
+            record_site_fallback(site, "int-dtype-kernel")
+            return hyca_matmul(x, w, self.state, cfg=self.hyca, plan=plan)
+        x2, lead = _as_2d(x)
+        and_grid, or_grid = self.mask_grids(plan)
+        out = ft_matmul(x2, w, and_grid, or_grid)
+        return out.reshape(*lead, w.shape[-1])
+
+
+def build_ftcontext(
+    state: FaultState | None,
+    hyca: HyCAConfig,
+    *,
+    policy: ProtectPolicy | None = None,
+    dispatch: str = "twopass",
+    plan=None,
+    fused_block=None,
+    autotune_shapes=None,
+) -> FTContext:
+    """Build an :class:`FTContext`.  The fused dispatch needs no backend
+    choice here: :func:`~repro_torch.kernels.ft_matmul.ft_matmul` launches the
+    CUDA kernel for CUDA tensors and its plain twin for CPU tensors.  The
+    fault table and plan are validated against the array geometry now."""
+    if dispatch not in DISPATCHES:
+        raise ValueError(f"unknown dispatch {dispatch!r}; known: {DISPATCHES}")
+    if fused_block is not None or autotune_shapes:
+        raise NotImplementedError("kernel-block autotuning comes with the kernel-tier slice")
+    policy = policy or ProtectPolicy()
+    if policy.abft:
+        raise NotImplementedError("ABFT checksum lanes come with the transients slice")
+    if state is not None:
+        validate_fault_state(state, hyca.rows, hyca.cols)
+    if plan is not None:
+        for p in (plan.values() if isinstance(plan, dict) else (plan,)):
+            validate_repair_plan(p, hyca.rows, hyca.cols)
+    return FTContext(state=state, hyca=hyca, policy=policy, dispatch=dispatch, plan=plan)
+
+
+def site_matmul(ftc: FTContext | None, site: str) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """A plain ``torch.matmul`` when no context is threaded, else the
+    context's dispatcher bound to one call site."""
+    if ftc is None:
+        return torch.matmul
+    return lambda x, w: ftc.matmul(x, w, site=site)

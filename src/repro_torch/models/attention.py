@@ -1,0 +1,100 @@
+"""Grouped-query attention (covers MHA): projections, one-token decode and the
+KV cache.  Scores and softmax run in f32, as in the JAX package; attention
+itself is plain PyTorch (the JAX package left it to XLA, outside any Pallas
+kernel).  Blockwise prefill attention and MLA come with later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.ftcontext import site_matmul
+from repro_torch.models.layers import Params, apply_rope, dense_init
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int | None = None
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    q_block: int = 512
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+
+def gqa_init(gen: torch.Generator, cfg: AttnConfig, *, device="cuda") -> Params:
+    hd = cfg.hd
+    p = {
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * hd, device=device),
+        "wk": dense_init(gen, cfg.d_model, cfg.n_kv * hd, device=device),
+        "wv": dense_init(gen, cfg.d_model, cfg.n_kv * hd, device=device),
+        "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, device=device),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", cfg.n_heads * hd), ("bk", cfg.n_kv * hd), ("bv", cfg.n_kv * hd)):
+            p[name] = torch.zeros((width,), dtype=torch.float32, device=device)
+    return p
+
+
+def _qkv(x, p, cfg: AttnConfig, positions, ftc=None):
+    b, s, _ = x.shape
+    hd = cfg.hd
+    mm = site_matmul(ftc, "attn.qkv")
+    q = mm(x, p["wq"])
+    k = mm(x, p["wk"])
+    v = mm(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv, hd)
+    v = v.reshape(b, s, cfg.n_kv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _grouped_scores(qb, k, scale):
+    """qb: (B,qb,Hk,G,D), k: (B,S,Hk,D) -> (B,qb,Hk,G,S) fp32."""
+    return torch.einsum("bqhgd,bshd->bqhgs", qb.to(torch.float32), k.to(torch.float32)) * scale
+
+
+def gqa_decode(x, p, cfg: AttnConfig, cache: Params, ftc=None) -> tuple[torch.Tensor, Params]:
+    """One-token decode.  x: (B,1,d); cache: {k, v: (B,Smax,Hk,D), idx: (B,)}.
+
+    The new K/V rows are written into ``cache["k"]`` / ``cache["v"]`` in place
+    (the JAX package returns updated copies; an in-place write saves a copy
+    of the whole cache per layer per step).  The returned cache shares those
+    tensors and carries ``idx + 1``."""
+    b = x.shape[0]
+    idx = cache["idx"]  # (B,) current length
+    q, k_new, v_new = _qkv(x, p, cfg, idx[:, None], ftc)
+    bidx = torch.arange(b, device=x.device)
+    k_cache, v_cache = cache["k"], cache["v"]
+    k_cache[bidx, idx.long()] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[bidx, idx.long()] = v_new[:, 0].to(v_cache.dtype)
+    smax = k_cache.shape[1]
+    g = cfg.n_heads // cfg.n_kv
+    scale = 1.0 / (cfg.hd ** 0.5)
+    qh = q.reshape(b, 1, cfg.n_kv, g, cfg.hd)
+    sc = _grouped_scores(qh, k_cache, scale)[:, 0]  # (B,Hk,G,S)
+    valid = torch.arange(smax, device=x.device)[None, :] <= idx[:, None]  # (B,S)
+    sc = torch.where(valid[:, None, None, :], sc, torch.full((), -1e30, device=x.device))
+    wts = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", wts, v_cache.to(torch.float32))
+    out = out.reshape(b, 1, cfg.n_heads * cfg.hd).to(x.dtype)
+    new_cache = {"k": k_cache, "v": v_cache, "idx": idx + 1}
+    return site_matmul(ftc, "attn.out")(out, p["wo"]), new_cache
+
+
+def gqa_cache_init(cfg: AttnConfig, batch: int, smax: int, dtype=torch.bfloat16, *, device="cuda") -> Params:
+    return {
+        "k": torch.zeros((batch, smax, cfg.n_kv, cfg.hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, smax, cfg.n_kv, cfg.hd), dtype=dtype, device=device),
+        "idx": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }

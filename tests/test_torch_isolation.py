@@ -1,0 +1,98 @@
+"""The port stands alone: no JAX, nothing of the JAX package, and no silent
+CPU fallback when a card was asked for."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_package_import(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_with_jax_and_reference_package_blocked():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import repro_torch.serving.server, repro_torch.kernels.ft_matmul\n"
+        "import repro_torch.kernels.dppu_recompute, repro_torch.kernels._build\n"
+        "import repro_torch.configs, repro_torch.core.scan\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules if sys.modules[m])\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    from repro_torch.core.scan import build_scan_engine
+    from repro_torch.kernels.dppu_recompute import probe_check, probe_check_ref
+    from repro_torch.serving import (
+        FaultInjector, FaultManager, FaultManagerConfig, FaultTolerantServer, ModelBundle, ServerConfig,
+    )
+
+    cfg = ServerConfig()
+    assert cfg.device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelBundle(cfg)
+    # a CPU scan engine computes the plain probe and launches no kernel
+    eng = build_scan_engine(4, 4, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    px = torch.randint(-4, 8, (4, 8), generator=g, dtype=torch.int32)
+    pw = torch.randint(-4, 8, (8, 4), generator=g, dtype=torch.int32)
+    ar = px @ pw
+    ar[1, 2] ^= 1 << 30
+    ar_neg = px @ -pw
+    before = probe_check.launches
+    state = eng.init_state()
+    flags = []
+    for _ in range(eng.cfg.steps_per_sweep):
+        state, f, _ = eng.probe_block(state, px, pw, ar, ar_neg)
+        flags.append(f)
+    assert torch.equal(torch.cat(flags), probe_check_ref(px, pw, ar, window=8))
+    assert int(state.hits.sum()) == 1 and int(state.hits[1, 2]) == 1
+    assert probe_check.launches == before
+    with pytest.raises(NotImplementedError):
+        ModelBundle(ServerConfig(device="cpu", counters=True))
+    with pytest.raises(NotImplementedError, match="repair slice"):
+        FaultTolerantServer(ServerConfig(device="cpu", repair="remap"))
+    with pytest.raises(NotImplementedError, match="transients"):
+        FaultManager(ServerConfig(device="cpu").hyca(), FaultInjector(8, 8),
+                     FaultManagerConfig(abft=True), device="cpu")
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """``chip_smoke.py`` exits non-zero and prints no result when there is no
+    card (here) — and so also in a directory holding nothing else."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script in (ROOT / "chip_smoke.py", lone):
+        out = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                             cwd=script.parent, timeout=120)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
