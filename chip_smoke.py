@@ -6,25 +6,32 @@ Phases, each printed on its own line; any failure exits non-zero:
 
   1. device   — require CUDA; print the card's name and power limit;
   2. build    — compile every kernel under src/repro_torch/csrc with nvcc;
-  3. ft_matmul against ft_matmul_ref at every shape of the qwen1.5-0.5b
-     decode step (M=4) plus a ragged one, bf16 and f32, on an 8x8 array with
-     stuck-at-0/1 faults (bit 31 included), a remap and a prune mask:
-     bitwise on integer-valued operands and on f32 operands that bf16 cannot
-     hold, within a stated tolerance of the plain version and of an f64
-     product on random operands;
-  4. probe_check against probe_check_ref over every row-block, ± probes,
+  3. ft_matmul against ft_matmul_ref at every shape of the qwen1.5-0.5b and
+     granite-moe-3b-a800m decode steps (M=4) plus a ragged one, bf16 and
+     f32, on an 8x8 array with stuck-at-0/1 faults (bit 31 included), a
+     remap and a prune mask: bitwise on integer-valued operands and on f32
+     operands that bf16 cannot hold, within a stated tolerance of the plain
+     version and of an f64 product on random operands;
+  4. ft_matmul_batched against ft_matmul_batched_ref in the same way, at the
+     granite expert shapes (48 experts x 4 rows, 1536->512 and 512->1536)
+     and a ragged 5x3x1000->1000, with x read as the strided view of the
+     (b, e, c, d) dispatch layout that the MoE path hands it;
+  5. probe_check against probe_check_ref over every row-block, ± probes,
      with and without faults;
-  5. the server at full width (qwen1.5-0.5b, random weights from a seed):
-     off, protected with 3 BIST faults (tokens must equal off), unprotected
-     with a stuck-at-1 on bit 30 of PE(0, 0) (logits must differ); each run
-     must launch ft_matmul 169 times per decode step and probe_check twice
-     per protected step; plus the smoke config on the card against the same
-     server on the CPU;
-  6. times: per kernel and shape, the kernel, its plain version, one
-     torch.matmul of the same bf16 product (device times from the profiler,
-     per-call times from CUDA events), and the bound; the decode-step time
-     and tokens/s; a profile of where one protected decode step's time
-     goes.
+  6. each served model at full width (random weights from a seed): off,
+     protected with 3 BIST faults (tokens and first-step logits must equal
+     off), unprotected with a stuck-at-1 on bit 30 of PE(0, 0) (logits must
+     differ); each run must launch every kernel of its path the stated
+     number of times per decode step (qwen: ft_matmul 169; granite:
+     ft_matmul 161, ft_matmul_batched 96) and probe_check twice per
+     protected step; plus the model's smoke config on the card against the
+     same server on the CPU;
+  7. times, per model: per kernel and shape, the kernel, its plain version,
+     one PyTorch call of the same bf16 product (device times from the
+     profiler, per-call times from CUDA events), and the bound; the
+     decode-step time and tokens/s; a profile of where one protected decode
+     step's time goes.  qwen1.5-0.5b is served, timed and freed before
+     granite-moe-3b-a800m is built.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -32,6 +39,7 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -47,19 +55,42 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int32: 67e
 L2_BYTES = 50 * 2**20
 
 ROWS = COLS = 8
-DECODE_SHAPES = (  # (name, M, K, N, launches per decode step) of qwen1.5-0.5b
-    ("qkv_1024x1024", 4, 1024, 1024, 24 * 3),
-    ("out_1024x1024", 4, 1024, 1024, 24),
-    ("up_gate_1024x2816", 4, 1024, 2816, 24 * 2),
-    ("down_2816x1024", 4, 2816, 1024, 24),
-    ("head_1024x152064", 4, 1024, 152064, 1),
-)
-LAUNCHES_PER_DECODE_STEP = sum(s[4] for s in DECODE_SHAPES)  # 169
+QWEN, GRANITE = "qwen1.5-0.5b", "granite-moe-3b-a800m"
+# (name, M, K, N, launches per decode step) of each model's ft_matmul calls
+DECODE_SHAPES = {
+    QWEN: (
+        ("qkv_1024x1024", 4, 1024, 1024, 24 * 3),
+        ("out_1024x1024", 4, 1024, 1024, 24),
+        ("up_gate_1024x2816", 4, 1024, 2816, 24 * 2),
+        ("down_2816x1024", 4, 2816, 1024, 24),
+        ("head_1024x152064", 4, 1024, 152064, 1),
+    ),
+    GRANITE: (
+        ("q_out_1536x1536", 4, 1536, 1536, 32 * 2),
+        ("kv_1536x512", 4, 1536, 512, 32 * 2),
+        ("router_1536x48", 4, 1536, 48, 32),
+        ("head_1536x49408", 4, 1536, 49408, 1),
+    ),
+}
+# (name, E, M, K, N, launches per decode step) of ft_matmul_batched
+EXPERT_SHAPES = {
+    QWEN: (),
+    GRANITE: (
+        ("gate_up_48x1536x512", 48, 4, 1536, 512, 32 * 2),
+        ("down_48x512x1536", 48, 4, 512, 1536, 32),
+    ),
+}
 # random operands: |kernel - plain| and |kernel - f64| <= RAND_TOL * (|x| @ |w|).
 # An f32 accumulate over K terms reads ~2e-7 of that scale; an operand rounded
 # to bf16 on its way in reads ~5e-5 to 1e-4 at K = 1024..2816.
 RAND_TOL = 1e-5
 FRAC = 1 + 2**-8  # exact in f32, not in bf16: a ±FRAC operand shows any rounding to bf16
+
+
+def per_step(arch: str) -> dict[str, int]:
+    """Launches per decode step of each matmul kernel on ``arch``'s path."""
+    return {"ft_matmul": sum(s[-1] for s in DECODE_SHAPES[arch]),
+            "ft_matmul_batched": sum(s[-1] for s in EXPERT_SHAPES[arch])}
 
 
 def phase(name: str, /, **fields) -> None:
@@ -117,74 +148,112 @@ def fault_grids(dev):
     return fault_mask_grids(meta)
 
 
-def ft_matmul_phase(dev) -> float:
+def _kernel_checks(name: str, kernel, plain, operands, and_g, or_g, dtype) -> tuple[float, float]:
+    """One kernel against its plain version on one shape and dtype.
+    ``operands(kind)`` draws (x, w).  Integer-valued operands, and in f32 one
+    operand of ±(1 + 2^-8) entries: every partial sum is a multiple of 2^-8
+    below 2^16, so exact in f32 in any order, and the kernel and the plain
+    version must agree bit for bit (rounding the f32 operand to bf16 drops the
+    2^-8 and shows here).  Random operands: the clean accumulate within
+    RAND_TOL of the plain version and of an f64 product, and the faulted
+    output exactly the epilogue of the kernel's own clean accumulate.
+    Returns (max |Δ| against the plain version, max |Δ| / scale)."""
     from repro_torch.core.engine import apply_mask_grids
+
+    keep = torch.full_like(and_g, -1)
+    zero = torch.zeros_like(or_g)
+    kinds = ("integer",) + (("frac_x", "frac_w") if dtype == torch.float32 else ())
+    for kind in kinds:
+        x, w = operands(kind)
+        if kind != "integer":
+            t = x if kind == "frac_x" else w
+            check(not torch.equal(t, t.to(torch.bfloat16).float()), f"{kind}: operand exact in bf16")
+        got = kernel(x, w, and_g, or_g)
+        ref = plain(x, w, and_g, or_g)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+              f"{name} {dtype} {kind} operands: not bitwise equal")
+    x, w = operands("random")
+    clean = kernel(x, w, keep, zero)
+    faulted = kernel(x, w, and_g, or_g)
+    ref = plain(x, w, keep, zero)
+    exact = torch.matmul(x.double(), w.double())
+    scale = torch.matmul(x.double().abs(), w.double().abs()) + 1e-30
+    err = (clean.double() - ref.double()).abs()
+    err64 = (clean.double() - exact).abs()
+    check(bool((err <= RAND_TOL * scale).all()), f"{name} {dtype} random operands: beyond tolerance of the plain version")
+    check(bool((err64 <= RAND_TOL * scale).all()), f"{name} {dtype} random operands: beyond tolerance of the f64 product")
+    rows = and_g.shape[0]
+    row_res = (torch.arange(clean.shape[-2], device=clean.device) % rows)[:, None]
+    check(torch.equal(faulted.view(torch.int32),
+                      apply_mask_grids(clean, and_g, or_g, row_residue=row_res).view(torch.int32)),
+          f"{name} {dtype}: faulted output is not the epilogue of the accumulate")
+    return float(err.max()), max(float((err / scale).max()), float((err64 / scale).max()))
+
+
+def _draw(g, dev, dtype, kind: str, shape, scale: float, frac: bool):
+    if kind == "random":
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+    a = torch.randint(-4, 5, shape, generator=g, device=dev).to(torch.float32)
+    if frac:
+        sign = torch.randint(0, 2, shape, generator=g, device=dev) * 2 - 1
+        a = torch.where(torch.rand(shape, generator=g, device=dev) < 0.25, sign * FRAC, a)
+    return a.to(dtype)
+
+
+def ft_matmul_phase(dev) -> float:
     from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_ref
 
     g = torch.Generator(device=dev).manual_seed(0)
     and_g, or_g = fault_grids(dev)
-    keep = torch.full_like(and_g, -1)
-    zero = torch.zeros_like(or_g)
     max_err = max_rel = 0.0
-    shapes = [(n, m, k, nn) for n, m, k, nn, _ in DECODE_SHAPES] + [("ragged_3x1000x1000", 3, 1000, 1000)]
+    shapes = ([(n, m, k, nn) for arch in (QWEN, GRANITE) for n, m, k, nn, _ in DECODE_SHAPES[arch]]
+              + [("ragged_3x1000x1000", 3, 1000, 1000)])
     for name, m, k, n in shapes:
         head = name.startswith("head")
         for dtype in (torch.bfloat16, torch.float32):
             def operands(kind: str):
-                def draw(shape, scale, frac: bool):
-                    if kind == "random":
-                        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
-                    a = torch.randint(-4, 5, shape, generator=g, device=dev).to(torch.float32)
-                    if frac:
-                        sign = torch.randint(0, 2, shape, generator=g, device=dev) * 2 - 1
-                        a = torch.where(torch.rand(shape, generator=g, device=dev) < 0.25, sign * FRAC, a)
-                    return a.to(dtype)
-                x = draw((m, k), 1.0, kind == "frac_x")
+                x = _draw(g, dev, dtype, kind, (m, k), 1.0, kind == "frac_x")
                 # the head reads the (vocab, d) table through a transposed view
                 fw = kind == "frac_w"
-                w = draw((n, k), 0.02, fw).T if head else draw((k, n), 0.02, fw)
+                w = _draw(g, dev, dtype, kind, (n, k), 0.02, fw).T if head else _draw(g, dev, dtype, kind, (k, n), 0.02, fw)
                 return x, w
 
-            # integer-valued operands, and in f32 one operand of ±(1 + 2^-8)
-            # entries: every partial sum is a multiple of 2^-8 below 2^16, so
-            # exact in f32 in any order, and the kernel and the plain version
-            # must agree bit for bit.  Rounding the f32 operand to bf16 drops
-            # the 2^-8 and shows here.
-            kinds = ("integer",) + (("frac_x", "frac_w") if dtype == torch.float32 else ())
-            for kind in kinds:
-                x, w = operands(kind)
-                if kind != "integer":
-                    t = x if kind == "frac_x" else w
-                    check(not torch.equal(t, t.to(torch.bfloat16).float()), f"{kind}: operand exact in bf16")
-                got = ft_matmul(x, w, and_g, or_g)
-                ref = ft_matmul_ref(x, w, and_g, or_g)
-                torch.cuda.synchronize()
-                check(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
-                      f"ft_matmul {name} {dtype} {kind} operands: not bitwise equal")
-            # random operands: the clean accumulate within RAND_TOL of the
-            # plain version and of an f64 product, and the faulted output is
-            # exactly the epilogue of the kernel's own clean accumulate
-            # (forced bits present)
-            x, w = operands("random")
-            clean = ft_matmul(x, w, keep, zero)
-            faulted = ft_matmul(x, w, and_g, or_g)
-            ref = ft_matmul_ref(x, w, keep, zero)
-            exact = torch.matmul(x.double(), w.double())
-            scale = torch.matmul(x.double().abs(), w.double().abs()) + 1e-30
-            err = (clean.double() - ref.double()).abs()
-            err64 = (clean.double() - exact).abs()
-            check(bool((err <= RAND_TOL * scale).all()),
-                  f"ft_matmul {name} {dtype} random operands: beyond tolerance of the plain version")
-            check(bool((err64 <= RAND_TOL * scale).all()),
-                  f"ft_matmul {name} {dtype} random operands: beyond tolerance of the f64 product")
-            check(torch.equal(faulted.view(torch.int32),
-                              apply_mask_grids(clean, and_g, or_g).view(torch.int32)),
-                  f"ft_matmul {name} {dtype}: faulted output is not the epilogue of the accumulate")
-            max_err = max(max_err, float(err.max()))
-            max_rel = max(max_rel, float((err / scale).max()), float((err64 / scale).max()))
+            e, r = _kernel_checks(f"ft_matmul {name}", ft_matmul, ft_matmul_ref, operands, and_g, or_g, dtype)
+            max_err, max_rel = max(max_err, e), max(max_rel, r)
     phase("ft_matmul", shapes=[s[0] for s in shapes], dtypes=["bf16", "f32"],
           bitwise=["integer", "f32 frac_x", "f32 frac_w"], random_tol=f"{RAND_TOL}*(|x|@|w|)",
           max_abs_err=max_err, max_err_over_scale=max_rel)
+    return max_err
+
+
+def dispatch_view(t: torch.Tensor) -> torch.Tensor:
+    """A (b, e, c, d) tensor with c = 1 as the (e, b·c, d) strided view that
+    ``FTContext.einsum`` hands ``ft_matmul_batched`` at decode."""
+    b, e, c, d = t.shape
+    return t.transpose(0, 1).reshape(e, b * c, d)
+
+
+def ft_matmul_batched_phase(dev) -> float:
+    from repro_torch.kernels.ft_matmul import ft_matmul_batched, ft_matmul_batched_ref
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    and_g, or_g = fault_grids(dev)
+    max_err = max_rel = 0.0
+    shapes = [s[:5] for s in EXPERT_SHAPES[GRANITE]] + [("ragged_5x3x1000x1000", 5, 3, 1000, 1000)]
+    for name, e, m, k, n in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            def operands(kind: str):
+                x = dispatch_view(_draw(g, dev, dtype, kind, (m, e, 1, k), 1.0, kind == "frac_x"))
+                w = _draw(g, dev, dtype, kind, (e, k, n), 0.02, kind == "frac_w")
+                return x, w
+
+            er, r = _kernel_checks(f"ft_matmul_batched {name}", ft_matmul_batched, ft_matmul_batched_ref,
+                                   operands, and_g, or_g, dtype)
+            max_err, max_rel = max(max_err, er), max(max_rel, r)
+    phase("ft_matmul_batched", shapes=[s[0] for s in shapes], dtypes=["bf16", "f32"],
+          x_layout="(b, e, c, d) strided view", bitwise=["integer", "f32 frac_x", "f32 frac_w"],
+          random_tol=f"{RAND_TOL}*(|x|@|w|)", max_abs_err=max_err, max_err_over_scale=max_rel)
     return max_err
 
 
@@ -220,11 +289,16 @@ def trace(vocab: int, n: int = 6, prompt: int = 8, gen: int = 8):
             for _ in range(n)]
 
 
+def _kernels():
+    from repro_torch.kernels.dppu_recompute import probe_check
+    from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_batched
+
+    return {"ft_matmul": ft_matmul, "ft_matmul_batched": ft_matmul_batched, "probe_check": probe_check}
+
+
 def serve(bundle, mode: str, vocab: int, *, faults=(), record_logits=False):
     """One server run; returns (tokens by rid, summary, per-step seconds,
     first step's logits, launch counts of this run)."""
-    from repro_torch.kernels.dppu_recompute import probe_check
-    from repro_torch.kernels.ft_matmul import ft_matmul
     from repro_torch.serving import FaultInjector, FaultTolerantServer
 
     cfg = dataclasses.replace(bundle.cfg, mode=mode)
@@ -245,7 +319,9 @@ def serve(bundle, mode: str, vocab: int, *, faults=(), record_logits=False):
     for t in trace(vocab):
         srv.submit(t["prompt"], t["max_new_tokens"])
     times = []
-    ft_matmul.launches = probe_check.launches = 0
+    kernels = _kernels()
+    for k in kernels.values():
+        k.launches = 0
     try:
         while srv.queue.depth() or srv.scheduler.active:
             t0 = time.perf_counter()
@@ -253,55 +329,62 @@ def serve(bundle, mode: str, vocab: int, *, faults=(), record_logits=False):
             times.append(time.perf_counter() - t0)
     finally:
         del bundle.step_fn
-    counts = {"ft_matmul": ft_matmul.launches, "probe_check": probe_check.launches}
+    counts = {name: k.launches for name, k in kernels.items()}
     srv.metrics.finish()
     return srv.completions_by_rid(), srv.metrics.summary(), times, (first[0] if first else None), counts
 
 
-def server_phase(dev):
+def server_phase(dev, arch: str):
+    """Serve ``arch`` at full width off / protected / unprotected and hold
+    the runs to each other and to the launch counts; then the smoke config
+    on the card against the CPU."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.serving import ModelBundle, ServerConfig
 
-    lm = get_config("qwen1.5-0.5b")
-    cfg = ServerConfig(device=str(dev), dispatch="fused", n_slots=4, rows=ROWS, cols=COLS,
+    lm = get_config(arch)
+    cfg = ServerConfig(arch=arch, device=str(dev), dispatch="fused", n_slots=4, rows=ROWS, cols=COLS,
                        dppu_size=4, smax=96, seed=0)
     t0 = time.perf_counter()
     bundle = ModelBundle(cfg, lm=lm)
-    phase("bundle", arch=lm.name, layers=lm.n_layers, d_model=lm.d_model,
-          vocab=lm.padded_vocab, seconds=round(time.perf_counter() - t0, 3))
+    torch.cuda.synchronize()
+    phase("bundle", arch=lm.name, layers=lm.n_layers, d_model=lm.d_model, vocab=lm.padded_vocab,
+          experts=lm.moe.n_padded if lm.moe else 0, seconds=round(time.perf_counter() - t0, 3),
+          device_gib=round(torch.cuda.memory_allocated() / 2**30, 3))
     serve(bundle, "off", lm.vocab)  # warm-up: first launches, allocator, kernels loaded
 
     runs = {}
+    want = per_step(arch)
     bist = [(0, 1, 30, 1), (2, 3, 31, 0), (3, 6, 20, 1)]  # 3 <= capacity 4
     for mode, faults in (("off", ()), ("protected", bist), ("unprotected", [(0, 0, 30, 1)])):
         toks, summ, times, logits0, counts = serve(bundle, mode, lm.vocab, faults=faults, record_logits=True)
         steps = len(times)
-        check(counts["ft_matmul"] == LAUNCHES_PER_DECODE_STEP * steps,
-              f"{mode}: ft_matmul launched {counts['ft_matmul']} times in {steps} steps")
+        for name, n in want.items():
+            check(counts[name] == n * steps, f"{arch} {mode}: {name} launched {counts[name]} times in {steps} steps")
         want_probe = 2 * steps if mode == "protected" else 0
         check(counts["probe_check"] == want_probe,
-              f"{mode}: probe_check launched {counts['probe_check']} times in {steps} steps")
+              f"{arch} {mode}: probe_check launched {counts['probe_check']} times in {steps} steps")
         check(tuple(logits0.shape) == (4, 1, lm.padded_vocab), f"{mode}: logits shape {tuple(logits0.shape)}")
         runs[mode] = dict(tokens=toks, summary=summ, times=times, logits0=logits0, counts=counts)
-        phase(f"serve_{mode}", steps=steps, tokens=summ["tokens"], confirmed=summ["confirmed_faults_final"],
-              launches=counts, step_ms_median=round(1e3 * float(np.median(times)), 3),
+        phase(f"serve_{mode}", arch=arch, steps=steps, tokens=summ["tokens"],
+              confirmed=summ["confirmed_faults_final"], launches=counts,
+              step_ms_median=round(1e3 * float(np.median(times)), 3),
               tokens_per_s=round(summ["tokens"] / sum(times), 2))
 
     off, prot, unprot = runs["off"], runs["protected"], runs["unprotected"]
-    check(bool(torch.isfinite(off["logits0"][..., :lm.vocab].float()).all()), "off: non-finite logits")
+    check(bool(torch.isfinite(off["logits0"][..., :lm.vocab].float()).all()), f"{arch} off: non-finite logits")
     check(len(off["tokens"]) == 6 and all(len(t) == 8 and (t >= 0).all() and (t < lm.vocab).all()
-                                          for t in off["tokens"].values()), "off: token streams")
+                                          for t in off["tokens"].values()), f"{arch} off: token streams")
     check(off["tokens"].keys() == prot["tokens"].keys()
           and all(np.array_equal(off["tokens"][r], prot["tokens"][r]) for r in off["tokens"]),
-          "protected (3 faults <= capacity) tokens differ from off")
+          f"{arch}: protected (3 faults <= capacity) tokens differ from off")
     check(torch.equal(off["logits0"].view(torch.int16), prot["logits0"].view(torch.int16)),
-          "protected first-step logits differ from off")
+          f"{arch}: protected first-step logits differ from off")
     check(not torch.equal(off["logits0"].view(torch.int16), unprot["logits0"].view(torch.int16)),
-          "unprotected (PE(0,0) bit 30 stuck-at-1) logits equal off")
-    phase("serve_checks", protected_equals_off=True, unprotected_differs=True)
+          f"{arch}: unprotected (PE(0,0) bit 30 stuck-at-1) logits equal off")
+    phase("serve_checks", arch=arch, protected_equals_off=True, unprotected_differs=True)
 
     # the same smoke-size server on the card and on the CPU (plain versions)
-    small = dataclasses.replace(get_smoke_config("qwen1.5-0.5b"), dtype=torch.float32)
+    small = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
     scfg = dataclasses.replace(cfg, smax=32)
     gb = ModelBundle(scfg, lm=small)
     cb = ModelBundle(dataclasses.replace(scfg, device="cpu"), lm=small,
@@ -309,9 +392,9 @@ def server_phase(dev):
     gt, _, _, gl, _ = serve(gb, "unprotected", small.vocab, faults=[(1, 2, 20, 1)], record_logits=True)
     ct, _, _, cl, _ = serve(cb, "unprotected", small.vocab, faults=[(1, 2, 20, 1)], record_logits=True)
     err = float((gl.cpu() - cl).abs()[..., :small.vocab].max())
-    check(err <= 1e-4, f"smoke server on the card vs the CPU: first-step logits differ by {err}")
+    check(err <= 1e-4, f"{arch} smoke server on the card vs the CPU: first-step logits differ by {err}")
     check(all(np.array_equal(gt[r], ct[r]) for r in ct) and gt.keys() == ct.keys(),
-          "smoke server on the card vs the CPU: tokens differ")
+          f"{arch} smoke server on the card vs the CPU: tokens differ")
     phase("serve_reference", arch=small.name, max_abs_err_logits=err, tokens_equal=True)
     return bundle, runs
 
@@ -366,74 +449,98 @@ def measure(fn, args_list, iters: int) -> tuple[float, float | None]:
     return time_cuda(fn, args_list, iters), device_ms(fn, args_list, iters)
 
 
-def timing_phase(dev, smi: str, runs, max_err: float) -> list[dict]:
-    """Kernel, plain and library times per main-path shape.  ``ms`` is the
-    device time from the profiler where it reports one (else the per-call
-    time); ``call_ms`` is the time per call as a Python loop sees it."""
-    from repro_torch.kernels.dppu_recompute import probe_check, probe_check_ref
-    from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_ref
+def _time_shape(kernel, plain, library, x, ws, and_g, or_g):
+    copies = len(ws)
+    iters = max(20, 4 * copies)
+    c_k, d_k = measure(kernel, [(x, w, and_g, or_g) for w in ws], iters)
+    c_p, d_p = measure(plain, [(x, w, and_g, or_g) for w in ws], max(10, copies))
+    c_l, d_l = measure(library, [(x, w) for w in ws], iters)
+    use_dev = None not in (d_k, d_p, d_l)
+    t = (d_k, d_p, d_l) if use_dev else (c_k, c_p, c_l)
+    return t, (c_k, c_p, c_l), "profiler" if use_dev else "events"
+
+
+def timing_phase(dev, smi: str, arch: str, runs) -> dict[str, dict]:
+    """Kernel, plain and library times per main-path shape of ``arch``,
+    and the per-decode-step totals of each of its matmul kernels.  ``ms`` is
+    the device time from the profiler where it reports one (else the
+    per-call time); ``call_ms`` is the time per call as a Python loop sees
+    it.  Returns {kernel: per-step totals}."""
+    from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_batched, ft_matmul_batched_ref, ft_matmul_ref
 
     g = torch.Generator(device=dev).manual_seed(1)
     and_g, or_g = fault_grids(dev)
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, call_ms=0.0)
-    launches0 = (ft_matmul.launches, probe_check.launches)
-    for name, m, k, n, per_step in DECODE_SHAPES:
-        head = name.startswith("head")
-        w_bytes = 2 * k * n
-        copies = max(1, min(64, -(-2 * L2_BYTES // w_bytes)))
-        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-        ws = [((torch.randn((n, k), generator=g, device=dev) * 0.02).to(torch.bfloat16).T if head
-               else (torch.randn((k, n), generator=g, device=dev) * 0.02).to(torch.bfloat16))
-              for _ in range(copies)]
-        iters = max(20, 4 * copies)
-        c_k, d_k = measure(ft_matmul, [(x, w, and_g, or_g) for w in ws], iters)
-        c_p, d_p = measure(ft_matmul_ref, [(x, w, and_g, or_g) for w in ws], max(10, copies))
-        c_l, d_l = measure(torch.matmul, [(x, w) for w in ws], iters)
-        use_dev = None not in (d_k, d_p, d_l)
-        t_k, t_p, t_l = (d_k, d_p, d_l) if use_dev else (c_k, c_p, c_l)
-        nbytes = 2 * m * k + w_bytes + 4 * m * n + 2 * 4 * ROWS * COLS
-        b, by = bound_ms(nbytes, 2 * m * n * k, torch.bfloat16)
-        phase("time_ft_matmul", shape=name, M=m, K=k, N=n, launches_per_step=per_step,
-              ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b, bound_by=by,
-              bound_share=b / t_k, call_ms=c_k, plain_call_ms=c_p, library_call_ms=c_l,
-              ms_source="profiler" if use_dev else "events", card=smi)
-        for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b), ("call_ms", c_k)):
-            tot[key] += per_step * v
-        del ws
-    phase("time_ft_matmul_per_decode_step", launches=LAUNCHES_PER_DECODE_STEP, **tot, card=smi)
+    totals = {}
+    launches0 = {name: k.launches for name, k in _kernels().items()}
+    for kname, shapes in (("ft_matmul", DECODE_SHAPES[arch]), ("ft_matmul_batched", EXPERT_SHAPES[arch])):
+        if not shapes:
+            continue
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, call_ms=0.0)
+        for shape in shapes:
+            name, per = shape[0], shape[-1]
+            if kname == "ft_matmul":
+                _, m, k, n, _ = shape
+                e = 1
+                head = name.startswith("head")
+                x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
 
-    # probe_check at the serving scan shape: one grid row (1, 8) @ (8, 8)
+                def weight():
+                    if head:
+                        return (torch.randn((n, k), generator=g, device=dev) * 0.02).to(torch.bfloat16).T
+                    return (torch.randn((k, n), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+                kernel, plain, library = ft_matmul, ft_matmul_ref, torch.matmul
+            else:
+                _, e, m, k, n, _ = shape
+                x = dispatch_view(torch.randn((m, e, 1, k), generator=g, device=dev).to(torch.bfloat16))
+
+                def weight():
+                    return (torch.randn((e, k, n), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+                kernel, plain, library = ft_matmul_batched, ft_matmul_batched_ref, torch.bmm
+            w_bytes = 2 * e * k * n
+            ws = [weight() for _ in range(max(1, min(64, -(-2 * L2_BYTES // w_bytes))))]
+            (t_k, t_p, t_l), (c_k, c_p, c_l), src = _time_shape(kernel, plain, library, x, ws, and_g, or_g)
+            nbytes = 2 * e * m * k + w_bytes + 4 * e * m * n + 2 * 4 * ROWS * COLS
+            b, by = bound_ms(nbytes, 2 * e * m * n * k, torch.bfloat16)
+            phase(f"time_{kname}", arch=arch, shape=name, E=e, M=m, K=k, N=n, launches_per_step=per,
+                  ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b, bound_by=by,
+                  bound_share=b / t_k, call_ms=c_k, plain_call_ms=c_p, library_call_ms=c_l,
+                  ms_source=src, card=smi)
+            for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b), ("call_ms", c_k)):
+                tot[key] += per * v
+            del ws
+        totals[kname] = dict(tot, launches_per_step=sum(s[-1] for s in shapes))
+        phase(f"time_{kname}_per_decode_step", arch=arch, **totals[kname], card=smi)
+    # timing launches are not main-path launches
+    for name, k in _kernels().items():
+        k.launches = launches0[name]
+
+    prot = runs["protected"]
+    steady = prot["times"][2:] or prot["times"]
+    phase("time_decode_step", arch=arch, mode="protected", steps=len(prot["times"]),
+          step_ms_median=1e3 * float(np.median(steady)), step_ms_mean=1e3 * float(np.mean(steady)),
+          kernel_ms_per_step={k: v["ms"] for k, v in totals.items()},
+          tokens_per_s=prot["summary"]["tokens"] / sum(prot["times"]), card=smi)
+    return totals
+
+
+def time_probe_check(dev, smi: str) -> dict:
+    """probe_check at the serving scan shape: one grid row (1, 8) @ (8, 8)."""
+    from repro_torch.kernels.dppu_recompute import probe_check, probe_check_ref
+
+    g = torch.Generator(device=dev).manual_seed(1)
     px = torch.randint(-4, 8, (1, 8), generator=g, device=dev, dtype=torch.int32)
     pw = torch.randint(-4, 8, (8, COLS), generator=g, device=dev, dtype=torch.int32)
     ar = torch.randint(-4, 8, (1, COLS), generator=g, device=dev, dtype=torch.int32)
+    launches0 = probe_check.launches
     c_pk, d_pk = measure(probe_check, [(px, pw, ar)], 200)
     c_pp, d_pp = measure(lambda a, b, c: probe_check_ref(a, b, c, window=8), [(px, pw, ar)], 200)
-    # timing launches are not main-path launches
-    ft_matmul.launches, probe_check.launches = launches0
+    probe_check.launches = launches0
     use_dev = None not in (d_pk, d_pp)
     t_pk, t_pp = (d_pk, d_pp) if use_dev else (c_pk, c_pp)
     pb, pby = bound_ms(4 * (8 + 8 * COLS + COLS + COLS), 2 * 8 * COLS, torch.int32)
     phase("time_probe_check", shape="1x8x8", ms=t_pk, plain_ms=t_pp, bound_ms=pb, bound_by=pby,
           call_ms=c_pk, plain_call_ms=c_pp, ms_source="profiler" if use_dev else "events", card=smi)
-
-    prot = runs["protected"]
-    steady = prot["times"][2:] or prot["times"]
-    phase("time_decode_step", mode="protected", steps=len(prot["times"]),
-          step_ms_median=1e3 * float(np.median(steady)), step_ms_mean=1e3 * float(np.mean(steady)),
-          ft_matmul_ms_per_step=tot["ms"],
-          tokens_per_s=prot["summary"]["tokens"] / sum(prot["times"]), card=smi)
-
-    return [
-        {"name": "ft_matmul", "route": "cuda", "source": "src/repro_torch/csrc/ft_matmul.cu",
-         "replaces": "src/repro/kernels/ft_matmul.py:122",
-         "launches": prot["counts"]["ft_matmul"], "max_abs_err": max_err,
-         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-         "bound_by": "bytes", "library_ms": tot["library_ms"]},
-        {"name": "probe_check", "route": "cuda", "source": "src/repro_torch/csrc/probe_check.cu",
-         "replaces": "src/repro/kernels/dppu_recompute.py:135",
-         "launches": prot["counts"]["probe_check"], "max_abs_err": 0.0,
-         "ms": t_pk, "plain_ms": t_pp, "bound_ms": pb, "bound_by": pby, "library_ms": None},
-    ]
+    return dict(ms=t_pk, plain_ms=t_pp, bound_ms=pb, bound_by=pby)
 
 
 def profile_phase(bundle, smi: str, steps: int = 4) -> None:
@@ -461,11 +568,13 @@ def profile_phase(bundle, smi: str, steps: int = 4) -> None:
         wall = (time.perf_counter() - t0) / steps
     ka = prof.key_averages()
     dev_us = sum(_self_device_us(e) for e in ka)
-    by_dev = sorted(ka, key=_self_device_us, reverse=True)[:6]
+    by_dev = sorted(ka, key=_self_device_us, reverse=True)[:8]
     by_cpu = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
-    phase("profile_decode_step", steps=steps, step_ms=1e3 * wall,
+    launches = sum(e.count for e in ka if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    phase("profile_decode_step", arch=bundle.lm.name, steps=steps, step_ms=1e3 * wall,
           device_busy_ms=dev_us / 1e3 / steps if dev_us else None,
           device_busy_share=(dev_us / 1e6 / steps) / wall if dev_us else None,
+          launches_per_step=launches / steps,
           top_kernels=[[e.key[:60], _self_device_us(e) / 1e3 / steps, e.count // steps] for e in by_dev],
           top_host_ops=[[e.key[:60], e.self_cpu_time_total / 1e3 / steps, e.count // steps] for e in by_cpu],
           card=smi)
@@ -476,11 +585,41 @@ def main() -> None:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     dev = torch.device("cuda")
     build_phase()
-    max_err = ft_matmul_phase(dev)
+    err = {"ft_matmul": ft_matmul_phase(dev), "ft_matmul_batched": ft_matmul_batched_phase(dev)}
     probe_check_phase(dev)
-    bundle, runs = server_phase(dev)
-    kernels = timing_phase(dev, smi, runs, max_err)
-    profile_phase(bundle, smi)
+    timed = {"probe_check": time_probe_check(dev, smi)}
+    launches = {"ft_matmul": 0, "ft_matmul_batched": 0, "probe_check": 0}
+    per_path = {}
+    for arch in (QWEN, GRANITE):
+        bundle, runs = server_phase(dev, arch)
+        for name, n in runs["protected"]["counts"].items():
+            launches[name] += n
+        per_path[arch] = timing_phase(dev, smi, arch, runs)
+        profile_phase(bundle, smi)
+        del bundle, runs
+        gc.collect()
+        torch.cuda.empty_cache()  # the next model's bundle gets the card's memory
+
+    def matmul_row(name: str, replaces: str) -> dict:
+        paths = {arch: t[name] for arch, t in per_path.items() if name in t}
+        row = {"name": name, "route": "cuda", "source": "src/repro_torch/csrc/ft_matmul.cu",
+               "replaces": replaces, "launches": launches[name], "max_abs_err": err[name]}
+        # per decode step, summed over one step of each model whose path runs it
+        for key in ("ms", "plain_ms", "bound_ms"):
+            row[key] = sum(p[key] for p in paths.values())
+        row["bound_by"] = "bytes"
+        row["library_ms"] = sum(p["library_ms"] for p in paths.values())
+        row["per_decode_step"] = paths
+        return row
+
+    kernels = [
+        matmul_row("ft_matmul", "src/repro/kernels/ft_matmul.py:122"),
+        matmul_row("ft_matmul_batched", "src/repro/kernels/ft_matmul.py:194"),
+        {"name": "probe_check", "route": "cuda", "source": "src/repro_torch/csrc/probe_check.cu",
+         "replaces": "src/repro/kernels/dppu_recompute.py:135",
+         "launches": launches["probe_check"], "max_abs_err": 0.0, **timed["probe_check"],
+         "library_ms": None},
+    ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Architecture registry: ``arch`` id → :class:`~repro_torch.models.lm.LMConfig`.
 
-This slice ports qwen1.5-0.5b; every other id of the JAX registry is known
-and raises ``KeyError`` naming the slice that brings its model family.
+The port has qwen1.5-0.5b (dense), granite-moe-3b-a800m and deepseek-moe-16b
+(moe); every other id of the JAX registry is known and raises ``KeyError``
+naming the slice that brings its model family.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from repro_torch.models.lm import LMConfig
 
 _MODULES = {
     "qwen1.5-0.5b": "repro_torch.configs.qwen1p5_0p5b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
 }
 
 # the rest of the JAX registry, and the slice that ports each family
@@ -20,8 +23,6 @@ _LATER = {
     "minicpm3-4b": "the MLA slice",
     "starcoder2-3b": "the dense-variants slice (LayerNorm, non-gated FFN)",
     "granite-8b": "the dense-variants slice",
-    "deepseek-moe-16b": "the MoE slice",
-    "granite-moe-3b-a800m": "the MoE slice",
     "rwkv6-7b": "the SSM (RWKV6) slice",
     "llava-next-mistral-7b": "the multimodal slice",
 }

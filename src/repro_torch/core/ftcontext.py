@@ -10,18 +10,21 @@ One object carries the fault-tolerance story of a model call:
     array and which leading fraction of the layer stack is protected;
   * the dispatch: ``plain`` (no fault machinery), ``twopass`` (the engine's
     corrupt + overwrite + prune) or ``fused`` (one pass through
-    :func:`~repro_torch.kernels.ft_matmul.ft_matmul`: the CUDA kernel for
-    CUDA tensors, its plain twin for CPU tensors).
+    :func:`~repro_torch.kernels.ft_matmul.ft_matmul`, or
+    :func:`~repro_torch.kernels.ft_matmul.ft_matmul_batched` for the MoE
+    expert einsums: the CUDA kernel for CUDA tensors, its plain twin for CPU
+    tensors).
 
-Models route every weight matmul through ``ftc.matmul(x, w, site=...)``;
-``ftc=None`` is plain ``torch.matmul``.
+Models route every weight matmul through ``ftc.matmul(x, w, site=...)``, and
+the batched expert matmuls through ``ftc.einsum(spec, x, w, site=...)``;
+``ftc=None`` is plain ``torch.matmul`` / ``torch.einsum``.
 
 Invariant: with ``mode="protected"`` and #faults <= DPPU capacity, every
 dispatch is bit-exact with ``mode="off"``.
 
-Not in this slice (they raise ``NotImplementedError``): the MoE expert
-``einsum``, ABFT checksum lanes (``abft_matmul``), device counters and the
-call ledger, and kernel-block autotuning.
+Not in this slice (they raise ``NotImplementedError``): ABFT checksum lanes
+(``abft_matmul``), device counters and the call ledger, and kernel-block
+autotuning.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ from repro_torch.core.engine import (
     validate_fault_state,
     validate_repair_plan,
 )
-from repro_torch.kernels.ft_matmul import ft_matmul
+from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_batched
 from repro_torch.obs.fallbacks import record_site_fallback
 
 SITES = (
@@ -57,6 +60,10 @@ SITES = (
 )
 
 DISPATCHES = ("plain", "twopass", "fused")
+
+# Batched-weight einsum patterns FTContext.einsum understands (the MoE
+# expert matmuls, activation-major and weight-transposed).
+EINSUM_SPECS = ("becd,edf->becf", "becf,efd->becd")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,10 +180,32 @@ class FTContext:
     def abft_matmul(self, x, w, *, site: str, wc=None):
         raise NotImplementedError("ABFT checksum lanes come with the transients slice")
 
-    def einsum(self, spec: str, x, w, *, site: str):
-        raise NotImplementedError(
-            "batched expert einsums (ft_matmul_batched) come with the MoE slice"
-        )
+    def einsum(self, spec: str, x: torch.Tensor, w: torch.Tensor, *, site: str) -> torch.Tensor:
+        """Batched-weight einsum through the protected array: the MoE expert
+        matmuls of :data:`EINSUM_SPECS`, ``x (b, e, c, d)`` against ``w (e, d,
+        n)``.  Each expert's matmul is one virtual-array execution over its
+        ``(b·c, d)`` rows.  Under ``dispatch="fused"`` all experts go through
+        one :func:`ft_matmul_batched` launch; ``twopass`` runs the engine per
+        expert.  The spec is validated first, on every dispatch path.  The
+        result has ``x``'s dtype."""
+        if spec not in EINSUM_SPECS:
+            raise ValueError(
+                f"FTContext.einsum supports the expert-matmul patterns "
+                f"{EINSUM_SPECS} only, got {spec!r}"
+            )
+        if not self.protects(site) or self.dispatch == "plain":
+            return torch.einsum(spec, x, w)
+        plan = self._plan_for(site)
+        if self.dispatch == "fused":
+            return self._fused_einsum(x, w, plan, site=site).to(x.dtype)
+        return self._einsum_twopass(x, w, plan).to(x.dtype)
+
+    def _einsum_twopass(self, x: torch.Tensor, w: torch.Tensor, plan: RepairPlan | None) -> torch.Tensor:
+        b, e, c, d = x.shape
+        xe = x.transpose(0, 1).reshape(e, b * c, d)
+        out = torch.stack([hyca_matmul(xe[i], w[i], self.state, cfg=self.hyca, plan=plan)
+                           for i in range(e)])
+        return out.reshape(e, b, c, -1).transpose(0, 1)
 
     # ------------------------------------------------------------------ #
     # fused dispatch
@@ -202,6 +231,19 @@ class FTContext:
         and_grid, or_grid = self.mask_grids(plan)
         out = ft_matmul(x2, w, and_grid, or_grid)
         return out.reshape(*lead, w.shape[-1])
+
+    def _fused_einsum(self, x: torch.Tensor, w: torch.Tensor, plan: RepairPlan | None,
+                      *, site: str) -> torch.Tensor:
+        if not x.dtype.is_floating_point or not w.dtype.is_floating_point:
+            record_site_fallback(site, "int-dtype-kernel")
+            return self._einsum_twopass(x, w, plan)
+        b, e, c, d = x.shape
+        # (b, e, c, d) -> (e, b·c, d): a strided view when b·c rows have one
+        # stride (c == 1 at decode), else a copy; the kernel reads strides
+        xe = x.transpose(0, 1).reshape(e, b * c, d)
+        and_grid, or_grid = self.mask_grids(plan)
+        out = ft_matmul_batched(xe, w, and_grid, or_grid)
+        return out.reshape(e, b, c, -1).transpose(0, 1)
 
 
 def build_ftcontext(

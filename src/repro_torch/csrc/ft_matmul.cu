@@ -1,14 +1,21 @@
 // Fault-tolerant matmul for Hopper (sm_90a): out = epilogue(x @ w).
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/ft_matmul.py::ft_matmul
-// (body _kernel / _drain_tile).  It computes what that kernel computes, at
-// element granularity: a float32 accumulate of (M, K) @ (K, N), then the
-// per-PE stuck-at / DPPU-repair / remap / prune epilogue applied to the f32
-// bit pattern of each output element out[i, j] -> PE(i % rows, j % cols):
+// Replaces the Pallas TPU kernels src/repro/kernels/ft_matmul.py::ft_matmul
+// (body _kernel / _drain_tile) and ::ft_matmul_batched (body
+// _kernel_batched).  It computes what they compute, at element granularity:
+// a float32 accumulate of (M, K) @ (K, N), then the per-PE stuck-at /
+// DPPU-repair / remap / prune epilogue applied to the f32 bit pattern of each
+// output element out[i, j] -> PE(i % rows, j % cols):
 //
 //     out = int_as_float((float_as_int(acc) & and_grid[pe]) | or_grid[pe])
 //
 // with the AND/OR mask pair of repro_torch.core.engine.fault_mask_grids.
+//
+// The batched form, x (E, M, K) @ w (E, K, N) -> out (E, M, N) (the MoE
+// expert matmuls), is the same kernel body with the expert on blockIdx.z and
+// a per-expert stride for x and w: one launch for all experts.  Each expert's
+// matmul is one virtual-array execution, so the PE map repeats per expert:
+// out[e, i, j] -> PE(i % rows, j % cols), the expert never enters the row.
 //
 // What bounds it here: on the serving path M is the decode batch (4), so each
 // call is a matrix-vector product that reads every weight once and does
@@ -97,8 +104,8 @@ template <bool W_K_FAST, typename XT, typename WT>
 __global__ void __launch_bounds__(THREADS, 4) ft_matmul_kernel(
     const XT* __restrict__ x, const WT* __restrict__ w,
     const int* __restrict__ and_grid, const int* __restrict__ or_grid,
-    float* __restrict__ out, int M, int N, int K,
-    long long sxm, long long sxk, long long swk, long long swn, int rows, int cols) {
+    float* __restrict__ out, int M, int N, int K, long long sxe, long long sxm,
+    long long sxk, long long swe, long long swk, long long swn, int rows, int cols) {
   using S = WStaging<W_K_FAST>;
   __shared__ float xs[BM][BK];
   __shared__ float ws[BK][BN + 1];  // +1: conflict-free stores along k
@@ -111,6 +118,10 @@ __global__ void __launch_bounds__(THREADS, 4) ft_matmul_kernel(
   const int warp = tid >> 5;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
+  // this block's expert (0 for the plain matmul); rows restart at 0 per expert
+  x += (long long)blockIdx.z * sxe;
+  w += (long long)blockIdx.z * swe;
+  out += (long long)blockIdx.z * M * N;
 
   if (tid < BM * BN) {
     const int i = tid / BN, j = tid % BN;
@@ -163,17 +174,39 @@ __global__ void __launch_bounds__(THREADS, 4) ft_matmul_kernel(
 
 template <typename XT, typename WT>
 void launch(const void* x, const void* w, const int* and_grid, const int* or_grid,
-            float* out, int M, int N, int K, long long sxm, long long sxk,
-            long long swk, long long swn, int rows, int cols, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+            float* out, int E, int M, int N, int K, long long sxe, long long sxm,
+            long long sxk, long long swe, long long swk, long long swn, int rows,
+            int cols, cudaStream_t stream) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
   const XT* xp = static_cast<const XT*>(x);
   const WT* wp = static_cast<const WT*>(w);
   if (swk == 1 && swn != 1)
     ft_matmul_kernel<true, XT, WT><<<grid, THREADS, 0, stream>>>(
-        xp, wp, and_grid, or_grid, out, M, N, K, sxm, sxk, swk, swn, rows, cols);
+        xp, wp, and_grid, or_grid, out, M, N, K, sxe, sxm, sxk, swe, swk, swn, rows, cols);
   else
     ft_matmul_kernel<false, XT, WT><<<grid, THREADS, 0, stream>>>(
-        xp, wp, and_grid, or_grid, out, M, N, K, sxm, sxk, swk, swn, rows, cols);
+        xp, wp, and_grid, or_grid, out, M, N, K, sxe, sxm, sxk, swe, swk, swn, rows, cols);
+}
+
+int dispatch(const void* x, const void* w, const void* and_grid, const void* or_grid,
+             void* out, int E, int M, int N, int K, long long sxe, long long sxm,
+             long long sxk, long long swe, long long swk, long long swn, int x_bf16,
+             int w_bf16, int rows, int cols, void* stream) {
+  if (E > 0 && M > 0 && N > 0) {
+    const int* ag = static_cast<const int*>(and_grid);
+    const int* og = static_cast<const int*>(or_grid);
+    float* o = static_cast<float*>(out);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (x_bf16 && w_bf16)
+      launch<__nv_bfloat16, __nv_bfloat16>(x, w, ag, og, o, E, M, N, K, sxe, sxm, sxk, swe, swk, swn, rows, cols, s);
+    else if (x_bf16)
+      launch<__nv_bfloat16, float>(x, w, ag, og, o, E, M, N, K, sxe, sxm, sxk, swe, swk, swn, rows, cols, s);
+    else if (w_bf16)
+      launch<float, __nv_bfloat16>(x, w, ag, og, o, E, M, N, K, sxe, sxm, sxk, swe, swk, swn, rows, cols, s);
+    else
+      launch<float, float>(x, w, ag, og, o, E, M, N, K, sxe, sxm, sxk, swe, swk, swn, rows, cols, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -186,19 +219,18 @@ extern "C" int ft_matmul_launch(const void* x, const void* w, const void* and_gr
                                 const void* or_grid, void* out, int M, int N, int K,
                                 long long sxm, long long sxk, long long swk, long long swn,
                                 int x_bf16, int w_bf16, int rows, int cols, void* stream) {
-  if (M > 0 && N > 0) {
-    const int* ag = static_cast<const int*>(and_grid);
-    const int* og = static_cast<const int*>(or_grid);
-    float* o = static_cast<float*>(out);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (x_bf16 && w_bf16)
-      launch<__nv_bfloat16, __nv_bfloat16>(x, w, ag, og, o, M, N, K, sxm, sxk, swk, swn, rows, cols, s);
-    else if (x_bf16)
-      launch<__nv_bfloat16, float>(x, w, ag, og, o, M, N, K, sxm, sxk, swk, swn, rows, cols, s);
-    else if (w_bf16)
-      launch<float, __nv_bfloat16>(x, w, ag, og, o, M, N, K, sxm, sxk, swk, swn, rows, cols, s);
-    else
-      launch<float, float>(x, w, ag, og, o, M, N, K, sxm, sxk, swk, swn, rows, cols, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch(x, w, and_grid, or_grid, out, 1, M, N, K, 0, sxm, sxk, 0, swk, swn,
+                  x_bf16, w_bf16, rows, cols, stream);
+}
+
+// The batched form: x (E, M, K) with strides (sxe, sxm, sxk); w (E, K, N) with
+// strides (swe, swk, swn); out (E, M, N) float32, contiguous.  E <= 65535.
+extern "C" int ft_matmul_batched_launch(const void* x, const void* w, const void* and_grid,
+                                        const void* or_grid, void* out, int E, int M, int N,
+                                        int K, long long sxe, long long sxm, long long sxk,
+                                        long long swe, long long swk, long long swn,
+                                        int x_bf16, int w_bf16, int rows, int cols,
+                                        void* stream) {
+  return dispatch(x, w, and_grid, or_grid, out, E, M, N, K, sxe, sxm, sxk, swe, swk, swn,
+                  x_bf16, w_bf16, rows, cols, stream);
 }

@@ -17,8 +17,10 @@ Params = dict
 DEFAULT_INIT_SCALE = 0.02
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, device="cuda") -> torch.Tensor:
-    return torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=device) * DEFAULT_INIT_SCALE
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, scale: float | None = None,
+               device="cuda") -> torch.Tensor:
+    s = DEFAULT_INIT_SCALE if scale is None else scale
+    return torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=device) * s
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, *, device="cuda") -> torch.Tensor:

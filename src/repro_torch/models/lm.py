@@ -1,6 +1,7 @@
 """LM composer: config schema, init, KV cache and one-token decode.
 
-This slice ports the dense family (the qwen1.5-0.5b serving path); the other
+The dense family (qwen1.5-0.5b) and the MoE family (granite-moe-3b-a800m,
+deepseek-moe-16b) are ported, with GQA attention and RMSNorm; the other
 families raise ``NotImplementedError`` until their slice lands.
 
 Params are nested dicts of tensors in the JAX package's layout (``w`` is
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.core.ftcontext import FTContext, site_matmul
 from repro_torch.models.attention import AttnConfig, gqa_cache_init, gqa_decode, gqa_init
 from repro_torch.models.layers import Params, embed_init, ffn, ffn_init, rmsnorm, rmsnorm_init
+from repro_torch.models.moe import moe_forward, moe_init
 
 _ACTS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"), "relu": F.relu}
 
@@ -82,35 +84,54 @@ class LMConfig:
         )
 
 
-def _require_dense(cfg: LMConfig) -> None:
-    if cfg.family != "dense" or cfg.attn_kind != "gqa" or cfg.norm != "rms":
+def _require_ported(cfg: LMConfig) -> None:
+    if cfg.family not in ("dense", "moe") or cfg.attn_kind != "gqa" or cfg.norm != "rms":
         raise NotImplementedError(
             f"{cfg.name}: family={cfg.family!r} attn={cfg.attn_kind!r} norm={cfg.norm!r} "
-            f"comes with a later slice; this one ports the dense GQA/RMSNorm family"
+            f"comes with a later slice; the port has the dense and moe families "
+            f"with GQA attention and RMSNorm"
         )
 
 
 # --------------------------------------------------------------------------- #
 # params
 # --------------------------------------------------------------------------- #
+def _dense_block_init(gen: torch.Generator, cfg: LMConfig, d_ff: int, device) -> Params:
+    return {
+        "ln1": rmsnorm_init(cfg.d_model, device=device),
+        "attn": gqa_init(gen, cfg.attn_cfg, device=device),
+        "ln2": rmsnorm_init(cfg.d_model, device=device),
+        "ffn": ffn_init(gen, cfg.d_model, d_ff, gated=cfg.gated_ffn, device=device),
+    }
+
+
+def _moe_block_init(gen: torch.Generator, cfg: LMConfig, device) -> Params:
+    return {
+        "ln1": rmsnorm_init(cfg.d_model, device=device),
+        "attn": gqa_init(gen, cfg.attn_cfg, device=device),
+        "ln2": rmsnorm_init(cfg.d_model, device=device),
+        "moe": moe_init(gen, cfg.moe, device=device),
+    }
+
+
 def init_params(gen: torch.Generator, cfg: LMConfig, *, device=None) -> Params:
     """Random f32 master params from a seeded ``torch.Generator``, on the
-    generator's device (or ``device``, which must match it)."""
-    _require_dense(cfg)
+    generator's device (or ``device``, which must match it).  The moe family
+    has ``blocks`` of MoE blocks and, when ``first_k_dense > 0``, the dense
+    ``dense_blocks`` that sit below them."""
+    _require_ported(cfg)
     device = gen.device if device is None else torch.device(device)
     p: Params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, device=device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, cfg.padded_vocab, cfg.d_model, device=device)
     p["final_norm"] = rmsnorm_init(cfg.d_model, device=device)
-    p["blocks"] = [
-        {
-            "ln1": rmsnorm_init(cfg.d_model, device=device),
-            "attn": gqa_init(gen, cfg.attn_cfg, device=device),
-            "ln2": rmsnorm_init(cfg.d_model, device=device),
-            "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated_ffn, device=device),
-        }
-        for _ in range(cfg.n_layers)
-    ]
+    if cfg.family == "dense":
+        p["blocks"] = [_dense_block_init(gen, cfg, cfg.d_ff, device) for _ in range(cfg.n_layers)]
+        return p
+    p["blocks"] = [_moe_block_init(gen, cfg, device) for _ in range(cfg.n_layers - cfg.first_k_dense)]
+    if cfg.first_k_dense:
+        p["dense_blocks"] = [_dense_block_init(gen, cfg, cfg.dense_d_ff or cfg.d_ff, device)
+                             for _ in range(cfg.first_k_dense)]
     return p
 
 
@@ -123,16 +144,21 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+_STACKED = ("blocks", "dense_blocks")
+
+
 def params_from_numpy(tree: dict, device="cuda") -> Params:
     """The JAX param pytree, handed over as nested dicts of numpy arrays
     (``jax.tree.map(np.asarray, params)``), in this package's layout: the
-    stacked ``blocks`` arrays become one dict per layer."""
+    stacked ``blocks`` and ``dense_blocks`` arrays become one dict per layer."""
     def to_t(a):
         return torch.from_numpy(np.array(a)).to(device)
 
-    out = {k: tree_map(to_t, v) for k, v in tree.items() if k != "blocks"}
-    blocks = tree["blocks"]
-    out["blocks"] = [tree_map(lambda a, i=i: to_t(a[i]), blocks) for i in range(len(blocks["ln1"]))]
+    out = {k: tree_map(to_t, v) for k, v in tree.items() if k not in _STACKED}
+    for key in _STACKED:
+        if key in tree:
+            stack = tree[key]
+            out[key] = [tree_map(lambda a, i=i: to_t(a[i]), stack) for i in range(len(stack["ln1"]))]
     return out
 
 
@@ -147,10 +173,17 @@ def cast_params(params: Params, dtype) -> Params:
 # serve: cache init + single-token decode
 # --------------------------------------------------------------------------- #
 def init_cache(cfg: LMConfig, batch: int, smax: int, dtype=torch.bfloat16, *, device="cuda") -> Params:
-    """{"attn": [per-layer {k, v: (B,Smax,Hk,D), idx: (B,)}]}."""
-    _require_dense(cfg)
-    return {"attn": [gqa_cache_init(cfg.attn_cfg, batch, smax, dtype, device=device)
-                     for _ in range(cfg.n_layers)]}
+    """{"attn": [per-layer {k, v: (B,Smax,Hk,D), idx: (B,)}]} for the main
+    stack, plus "attn_dense" for the first ``first_k_dense`` layers."""
+    _require_ported(cfg)
+
+    def layers(n):
+        return [gqa_cache_init(cfg.attn_cfg, batch, smax, dtype, device=device) for _ in range(n)]
+
+    cache: Params = {"attn": layers(cfg.n_layers - cfg.first_k_dense)}
+    if cfg.first_k_dense:
+        cache["attn_dense"] = layers(cfg.first_k_dense)
+    return cache
 
 
 def _layer_splits(n: int, ftc: FTContext | None) -> list[tuple[int, int, FTContext | None]]:
@@ -195,18 +228,36 @@ def decode_step(
     width the cast alone moves about 1.9 GB per step.
 
     Every weight matmul of the protected layer prefix and the LM head routes
-    through ``ftc``.  The KV cache is updated in place (see
-    :func:`~repro_torch.models.attention.gqa_decode`).
+    through ``ftc``: attention projections, FFN, MoE router and experts.  The
+    moe family's first-k dense blocks run with the whole ``ftc``, below the
+    split main stack, as in the JAX package.  The KV cache is updated in
+    place (see :func:`~repro_torch.models.attention.gqa_decode`).
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = params["embed"][batch["token"].long()]
     act = _ACTS[cfg.act]
-    layers = []
-    for lo, hi, fc in _layer_splits(cfg.n_layers, ftc):
+
+    def dense_block(x, lp, c, fc):
+        h, c2 = gqa_decode(rmsnorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, c, fc)
+        x = x + h
+        return x + ffn(rmsnorm(x, lp["ln2"]), lp["ffn"], act=act, ftc=fc), c2
+
+    def moe_block(x, lp, c, fc):
+        h, c2 = gqa_decode(rmsnorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, c, fc)
+        x = x + h
+        y, _ = moe_forward(rmsnorm(x, lp["ln2"]), lp["moe"], cfg.moe, ftc=fc)
+        return x + y, c2
+
+    new_cache: Params = {}
+    if cfg.first_k_dense:
+        new_cache["attn_dense"] = []
+        for lp, c in zip(params["dense_blocks"], cache["attn_dense"]):
+            x, c2 = dense_block(x, lp, c, ftc)
+            new_cache["attn_dense"].append(c2)
+    block = moe_block if cfg.family == "moe" else dense_block
+    new_cache["attn"] = []
+    for lo, hi, fc in _layer_splits(cfg.n_layers - cfg.first_k_dense, ftc):
         for i in range(lo, hi):
-            lp = params["blocks"][i]
-            h, c2 = gqa_decode(rmsnorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, cache["attn"][i], fc)
-            x = x + h
-            x = x + ffn(rmsnorm(x, lp["ln2"]), lp["ffn"], act=act, ftc=fc)
-            layers.append(c2)
-    return _logits(x, params, cfg, ftc), {"attn": layers}
+            x, c2 = block(x, params["blocks"][i], cache["attn"][i], fc)
+            new_cache["attn"].append(c2)
+    return _logits(x, params, cfg, ftc), new_cache

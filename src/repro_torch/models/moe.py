@@ -1,0 +1,135 @@
+"""Mixture-of-Experts FFN with GShard-style capacity dispatch, token-grouped.
+
+Dispatch and combine are einsums over a one-hot (B, G, E, C) tensor, as in
+the JAX package; they are plain ``torch.einsum`` here as there (outside any
+kernel).  The three expert matmuls go through ``ftc.einsum(...,
+site="moe.expert")`` (one ``ft_matmul_batched`` launch each under the fused
+dispatch), the router through ``site_matmul(ftc, "moe.router")``.
+
+Every expert is computed, padded and unrouted ones included, as the JAX
+package does: with an exponent-bit fault an unrouted expert's output can be
+inf, and ``0 · inf`` in the combine einsum is NaN, so skipping experts would
+change results.
+
+Experts whose count does not divide a mesh axis are padded (``pad_to``); the
+router masks the padded experts' logits to -1e30, so they are never routed
+to.  Covers deepseek-moe-16b (64 routed top-6 + 2 shared) and granite-moe
+(40 routed top-8, padded to 48, no shared).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.ftcontext import site_matmul
+from repro_torch.models.layers import Params, dense_init, ffn, ffn_init
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    n_experts: int
+    top_k: int
+    d_expert: int  # per-expert FFN hidden size
+    n_shared: int = 0
+    d_shared: int = 0  # shared-expert FFN hidden (fine-grained MoE)
+    capacity_factor: float = 1.25
+    group_size: int = 2048  # tokens per dispatch group (GShard group dim)
+    pad_to: int = 0         # pad the expert count (0 = no padding)
+
+    @property
+    def n_padded(self) -> int:
+        return max(self.pad_to, self.n_experts)
+
+
+def moe_init(gen: torch.Generator, cfg: MoEConfig, *, device="cuda") -> Params:
+    e, d, f = cfg.n_padded, cfg.d_model, cfg.d_expert
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * 0.02
+
+    p = {
+        "router": dense_init(gen, d, e, scale=0.006, device=device),
+        "gate": normal((e, d, f)),
+        "up": normal((e, d, f)),
+        "down": normal((e, f, d)),
+    }
+    if cfg.n_shared:
+        p["shared"] = ffn_init(gen, d, cfg.d_shared or cfg.d_expert * cfg.n_shared, device=device)
+    return p
+
+
+def _topk_dispatch(gates: torch.Tensor, top_k: int, capacity: int):
+    """gates: (B, G, E) probabilities.  Returns the dispatch (B, G, E, C)
+    one-hot and the combine weights; capacity-dropped tokens get zero weight.
+
+    The top-k is a stable descending sort cut at k, so on tied gates the
+    lower expert index comes first, as ``jax.lax.top_k`` orders them."""
+    b, g, e = gates.shape
+    topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :top_k], topi[..., :top_k]  # (B, G, k)
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)  # renormalise
+    experts = torch.arange(e, device=gates.device)
+    onehot = (topi.movedim(-1, 0)[..., None] == experts).to(torch.float32)  # (k, B, G, E)
+    # queue position per token within its expert, counted across (slot, token)
+    flat = onehot.movedim(0, 1).reshape(b, top_k * g, e)  # slot-major
+    pos = torch.cumsum(flat, dim=1).reshape(b, top_k, g, e).movedim(1, 0) - 1.0  # (k, B, G, E)
+    keep = (pos < capacity) * onehot
+    # a token occupies at most one slot per expert -> collapse k first
+    pos_ne = (pos * onehot).sum(0)  # (B, G, E)
+    keep_ne = keep.sum(0)           # (B, G, E)
+    gate_ne = torch.einsum("bgk,kbge->bge", topv, onehot)
+    # one_hot(pos, C): a position past capacity is an all-zero row
+    slots = torch.arange(capacity, device=gates.device)
+    dispatch = keep_ne[..., None] * (pos_ne.to(torch.int32)[..., None] == slots).to(torch.float32)
+    combine = dispatch * gate_ne[..., None]
+    return dispatch, combine
+
+
+def _group_forward(xg: torch.Tensor, p: Params, cfg: MoEConfig, ftc=None):
+    """xg: (B, G, d), one token group per batch row.  Returns (out, aux)."""
+    b, g, d = xg.shape
+    logits = site_matmul(ftc, "moe.router")(xg, p["router"]).to(torch.float32)  # (B, G, E_pad)
+    if cfg.n_padded != cfg.n_experts:  # mask padded experts out of routing
+        dead = torch.arange(cfg.n_padded, device=xg.device) >= cfg.n_experts
+        logits = logits.masked_fill(dead, -1e30)
+    gates = torch.softmax(logits, dim=-1)
+    capacity = max(1, int(cfg.capacity_factor * cfg.top_k * g / cfg.n_experts))
+    dispatch, combine = _topk_dispatch(gates, cfg.top_k, capacity)
+    xe = torch.einsum("bgec,bgd->becd", dispatch.to(xg.dtype), xg)  # (B, E, C, d)
+    # per-expert matmuls: each expert is one virtual-array execution
+    ein = (lambda s, a, w: ftc.einsum(s, a, w, site="moe.expert")) if ftc is not None else torch.einsum
+    h = F.silu(ein("becd,edf->becf", xe, p["gate"].to(xg.dtype)))
+    h = h * ein("becd,edf->becf", xe, p["up"].to(xg.dtype))
+    ye = ein("becf,efd->becd", h, p["down"].to(xg.dtype))
+    out = torch.einsum("bgec,becd->bgd", combine.to(xg.dtype), ye)
+    # load-balancing aux loss (Switch-style), over real experts only
+    me = gates[..., : cfg.n_experts].mean((0, 1))
+    ce = dispatch[..., : cfg.n_experts, :].sum(-1).mean((0, 1))
+    return out, cfg.n_experts * torch.sum(me * ce)
+
+
+def moe_forward(x: torch.Tensor, p: Params, cfg: MoEConfig, *, ftc=None):
+    """x: (B, S, d).  Returns (out, aux_loss).  Tokens stream through dispatch
+    groups of ``cfg.group_size`` within each batch row (a Python loop over
+    groups)."""
+    b, s, d = x.shape
+    gsz = min(cfg.group_size, s)
+    if s % gsz:  # awkward sequence lengths: one group per row
+        gsz = s
+    n_groups = s // gsz
+    if n_groups == 1:
+        out, aux = _group_forward(x, p, cfg, ftc)
+        return out + _shared(x, p, ftc), aux
+    outs, auxs = [], []
+    for i in range(n_groups):
+        o, a = _group_forward(x[:, i * gsz:(i + 1) * gsz], p, cfg, ftc)
+        outs.append(o)
+        auxs.append(a)
+    return torch.cat(outs, dim=1) + _shared(x, p, ftc), torch.stack(auxs).sum() / n_groups
+
+
+def _shared(x: torch.Tensor, p: Params, ftc=None) -> torch.Tensor:
+    return ffn(x, p["shared"], ftc=ftc) if "shared" in p else torch.zeros_like(x)

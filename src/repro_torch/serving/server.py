@@ -151,10 +151,12 @@ class ModelBundle:
         return decode_step(params, self.lm, cache, {"token": tok}, ftc=last[2])
 
     def reset_fn(self, cache: Params, slot: int) -> Params:
-        """Zero one slot of every layer's KV cache, in place."""
-        for layer in cache["attn"]:
-            for t in layer.values():
-                t[slot] = 0
+        """Zero one slot of every layer's KV cache, every part of it (the
+        main stack's and the first-k dense blocks'), in place."""
+        for part in cache.values():
+            for layer in part:
+                for t in layer.values():
+                    t[slot] = 0
         return cache
 
     def fresh_cache(self) -> Params:

@@ -128,8 +128,9 @@ def test_site_policy_and_validation():
     bad.fpt[0, 1] = COLS
     with pytest.raises(ValueError, match="out of bounds"):
         TF.build_ftcontext(bad, tftc.hyca)
-    for call in (lambda: tftc.einsum("becd,edf->becf", None, None, site="moe.expert"),
-                 lambda: tftc.abft_matmul(None, None, site="ffn"),
+    with pytest.raises(ValueError, match="expert-matmul patterns"):
+        tftc.einsum("bd,df->bf", None, None, site="moe.expert")
+    for call in (lambda: tftc.abft_matmul(None, None, site="ffn"),
                  lambda: tftc.with_counters(None),
                  lambda: TF.build_ftcontext(None, tftc.hyca, fused_block=(8, 128, 128))):
         with pytest.raises(NotImplementedError):

@@ -36,7 +36,8 @@ def test_port_imports_with_jax_and_reference_package_blocked():
         "    sys.modules[name] = None\n"
         "import repro_torch.serving.server, repro_torch.kernels.ft_matmul\n"
         "import repro_torch.kernels.dppu_recompute, repro_torch.kernels._build\n"
-        "import repro_torch.configs, repro_torch.core.scan\n"
+        "import repro_torch.configs, repro_torch.core.scan, repro_torch.models.moe\n"
+        "import repro_torch.configs.granite_moe_3b, repro_torch.configs.deepseek_moe_16b\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )
