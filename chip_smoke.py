@@ -31,7 +31,20 @@ Phases, each printed on its own line; any failure exits non-zero:
      profiler, per-call times from CUDA events), and the bound; the
      decode-step time and tokens/s; a profile of where one protected decode
      step's time goes.  qwen1.5-0.5b is served, timed and freed before
-     granite-moe-3b-a800m is built.
+     granite-moe-3b-a800m is built;
+  8. the paper's two-pass pipeline (kernels/ops.py), run on qwen1.5-0.5b's
+     full-width weights before they are freed: layer 0's q, up and down
+     matrices and the tied head's table.T, at M = 4096 tokens, on the
+     paper's 32x32 array with a DPPU of 32 and (bm, bn, bk) = 128.
+     os_array_matmul and dppu_recompute against their plain versions bit
+     for bit on integer-valued bf16, f32 and int8 operands (placement tiles
+     (1, 1) and (128, 256) too), and within RAND_TOL on the weights; the
+     twopass with 24 faults bitwise equal to the fault-free array, with 40
+     faults differing in exactly the tiles of the 8 PEs the DPPU cannot
+     repair; the fused single pass bitwise equal to the twopass; 1
+     os_array_matmul + 1 dppu_recompute launch per twopass call with faults,
+     1 with none; per shape the kernels' times beside bound, plain and
+     library.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -580,6 +593,308 @@ def profile_phase(bundle, smi: str, steps: int = 4) -> None:
           card=smi)
 
 
+# --------------------------------------------------------------------------- #
+# the paper's two-pass pipeline (kernels/ops.py) at full width
+# --------------------------------------------------------------------------- #
+TP_ARRAY = 32                          # the paper's 32 x 32 PE array, grouped DPPU of 32
+TP_TILE = dict(bm=128, bn=128, bk=128)
+TP_M = 4096                            # a 4 x 1024-token prefill: all 32 PE rows own a tile row
+TP_FIRST = [(31, 1), (31, 0), (30, 1), (30, 0), (0, 1), (1, 0), (2, 1), (3, 0)]
+TP_OVER = [(30, 1), (31, 1), (4, 0), (9, 1), (14, 0), (19, 1), (22, 0), (31, 0)]
+
+
+def _two_pass_kernels():
+    from repro_torch.kernels.dppu_recompute import dppu_recompute
+    from repro_torch.kernels.os_array_matmul import os_array_matmul
+
+    return {"os_array_matmul": os_array_matmul, "dppu_recompute": dppu_recompute}
+
+
+def two_pass_states():
+    """(24-fault state, 40-fault state, HyCAConfig) on the 32 x 32 array with
+    a DPPU of 32.  The 40 PEs are seeded draws from PE columns 0-7 (at
+    N = 1024 the output has 8 tile columns, so every fault owns tiles at every
+    shape); the 24-fault map is the 24 leftmost of them.  FPT entries 0-7
+    carry bits 31 and 30 stuck-at-1 and -0 and low mantissa bits; entries
+    32-39, which the DPPU cannot repair, carry stuck-ats that change about
+    half of the outputs or more, so every tile they own shows."""
+    from repro_torch.core.engine import FaultState, HyCAConfig
+    from repro_torch.core.redundancy import DPPUConfig
+
+    rng = np.random.default_rng(13)
+    cells = rng.choice(TP_ARRAY * 8, size=40, replace=False)
+    r, c = cells % TP_ARRAY, cells // TP_ARRAY
+    order = np.lexsort((r, c))  # leftmost-first: column, then row
+    fpt = np.stack([r[order], c[order]], axis=1).astype(np.int32)
+    bits = rng.integers(0, 32, 40).astype(np.int32)
+    vals = rng.integers(0, 2, 40).astype(np.int32)
+    for i, (b, v) in list(enumerate(TP_FIRST)) + list(enumerate(TP_OVER, start=32)):
+        bits[i], vals[i] = b, v
+    hyca = HyCAConfig(rows=TP_ARRAY, cols=TP_ARRAY, dppu=DPPUConfig(size=32), mode="protected")
+    check(hyca.capacity == 32, f"two-pass array: DPPU capacity {hyca.capacity}, not 32")
+
+    def state(n):
+        return FaultState(*(torch.from_numpy(a[:n].copy()) for a in (fpt, bits, vals)))
+
+    return state(24), state(40), hyca
+
+
+def two_pass_weights(bundle):
+    """(name, w) of layer 0's q, up and down matrices and the tied head's
+    ``table.T`` (a strided view) of the served qwen1.5-0.5b, bf16."""
+    blk = bundle.work["blocks"][0]
+    return (("q_1024x1024", blk["attn"]["wq"]), ("up_1024x2816", blk["ffn"]["up"]),
+            ("down_2816x1024", blk["ffn"]["down"]), ("head_1024x152064", bundle.work["embed"].T))
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def two_pass_kernel_checks(dev, shapes, state, hyca) -> None:
+    """Each two-pass kernel against its plain twin, bit for bit, on
+    integer-valued bf16, f32 and int8 operands (every partial sum exact) at
+    the four shapes, with the 24-fault grids and a hand-made tile table with
+    -1 padding; at the q shape also at placement tiles (1, 1) and (128, 256).
+    These launches are not main-path launches."""
+    from repro_torch.kernels.dppu_recompute import dppu_recompute, dppu_recompute_plain
+    from repro_torch.kernels.ops import fault_grids
+    from repro_torch.kernels.os_array_matmul import os_array_matmul_plain
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    bit, val, faulty, _ = fault_grids(state.to(dev), TP_ARRAY, TP_ARRAY, hyca.capacity)
+    os_array_matmul = _two_pass_kernels()["os_array_matmul"]
+    n_cmp = 0
+    for name, w0 in shapes:
+        k, n = w0.shape
+        head = name.startswith("head")
+        tiles = [(128, 128)] + ([(1, 1), (128, 256)] if name.startswith("q_") else [])
+        for dtype in (torch.bfloat16, torch.float32, torch.int8):
+            x = torch.randint(-4, 5, (TP_M, k), generator=g, device=dev).to(dtype)
+            if head:
+                w = torch.randint(-4, 5, (n, k), generator=g, device=dev).to(dtype).T
+            else:
+                w = torch.randint(-4, 5, (k, n), generator=g, device=dev).to(dtype)
+            for bm, bn in tiles:
+                got = os_array_matmul(x, w, bit, val, faulty, bm=bm, bn=bn, bk=128, rows=TP_ARRAY, cols=TP_ARRAY)
+                want = os_array_matmul_plain(x, w, bit, val, faulty, bm=bm, bn=bn)
+                check(_bits_equal(got, want), f"os_array_matmul {name} {dtype} ({bm}, {bn}): not bitwise equal to its twin")
+                del got, want
+                gm, gn = TP_M // bm, n // bn
+                fpt = torch.tensor([[0, 0], [-1, -1], [gm - 1, gn - 1], [gm // 2, gn // 3], [-1, -1]],
+                                   dtype=torch.int32)
+                got = dppu_recompute(x, w, fpt, bm=bm, bn=bn, bk=128)
+                want = dppu_recompute_plain(x, w, fpt, bm=bm, bn=bn)
+                check(_bits_equal(got, want), f"dppu_recompute {name} {dtype} ({bm}, {bn}): not bitwise equal to its twin")
+                check(_bits_equal(got[1], got[0]) and _bits_equal(got[4], got[0]),
+                      f"dppu_recompute {name}: a padded entry is not tile (0, 0)")
+                n_cmp += 2
+                del got, want
+            del x, w
+    phase("two_pass_kernels", shapes=[s[0] for s in shapes], M=TP_M, dtypes=["bf16", "f32", "int8"],
+          placements=["(128, 128) at every shape", "(1, 1) and (128, 256) at q"], comparisons=n_cmp,
+          bitwise=True, faults=int((state.fpt[:, 0] >= 0).sum()))
+
+
+def _tile_map(t: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
+    """(M // bm, N // bn) bool: which tiles of an (M, N) bool map hold a True."""
+    m, n = t.shape
+    return t.view(m // bm, bm, n // bn, bn).any(dim=3).any(dim=1)
+
+
+def two_pass_main_path(dev, shapes, xs, s24, s40, hyca) -> dict[str, int]:
+    """The main path of the kernel tier at the four shapes on the qwen
+    weights: the fault-free array, the twopass with 24 faults (bitwise equal
+    to it), pass 1 alone (corrupted, exactly the tile epilogue of the clean
+    product), the twopass with 40 faults (exactly the tiles of the 8 PEs the
+    DPPU cannot repair differ) and the fused single pass (bitwise equal to the
+    twopass).  Every call's launches are held to 1 os_array_matmul plus 1
+    dppu_recompute when there is a tile to recompute.  Returns the counts."""
+    from repro_torch.core.engine import apply_mask_grids, empty_fault_state
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.os_array_matmul import _tile_grids, stuck_at_mask_grids
+
+    kern = _two_pass_kernels()
+    empty = empty_fault_state(1)
+    unrep = torch.zeros((TP_ARRAY, TP_ARRAY), dtype=torch.bool)
+    for r, c in s40.fpt[hyca.capacity:].tolist():
+        unrep[r, c] = True
+    bit24, val24, faulty24, _ = ops.fault_grids(s24, TP_ARRAY, TP_ARRAY, hyca.capacity)
+    and24, or24 = (t.to(dev) for t in stuck_at_mask_grids(bit24, val24, faulty24))
+    for k in kern.values():
+        k.launches = 0
+    for name, w in shapes:
+        x = xs[w.shape[0]]
+        m, n = x.shape[0], w.shape[1]
+        gm, gn = m // TP_TILE["bm"], n // TP_TILE["bn"]
+
+        def run(fn, state, os_n, dppu_n):
+            before = {k: v.launches for k, v in kern.items()}
+            out = fn(x, w, state, hyca, **TP_TILE)
+            torch.cuda.synchronize()
+            got = {k: v.launches - before[k] for k, v in kern.items()}
+            check(got == {"os_array_matmul": os_n, "dppu_recompute": dppu_n},
+                  f"{name} {fn.__name__}: launches {got}, want {os_n} + {dppu_n}")
+            check(tuple(out.shape) == (m, n) and out.dtype == torch.float32, f"{name} {fn.__name__}: output")
+            return out
+
+        clean = run(ops.hyca_protected_matmul_twopass, empty, 1, 0)
+        check(bool(torch.isfinite(clean).all()), f"{name}: non-finite fault-free output")
+        out = run(ops.hyca_protected_matmul_twopass, s24, 1, 1)
+        check(_bits_equal(out, clean), f"{name}: twopass with 24 faults differs from the fault-free array")
+        del out
+        out = run(ops.faulty_array_matmul, s24, 1, 0)
+        ri, ci = _tile_grids(m, n, TP_TILE["bm"], TP_TILE["bn"], TP_ARRAY, TP_ARRAY, dev)
+        check(_bits_equal(out, apply_mask_grids(clean, and24, or24, row_residue=ri, col_residue=ci)),
+              f"{name}: pass 1 is not the tile epilogue of the fault-free product")
+        check(not _bits_equal(out, clean), f"{name}: the 24 faults do not show in pass 1")
+        del out
+        two = run(ops.hyca_protected_matmul_twopass, s40, 1, 1)
+        want_tiles = unrep[torch.arange(gm) % TP_ARRAY][:, torch.arange(gn) % TP_ARRAY].to(dev)
+        differs = _tile_map(two.view(torch.int32) != clean.view(torch.int32), TP_TILE["bm"], TP_TILE["bn"])
+        check(bool(want_tiles.any()) and torch.equal(differs, want_tiles),
+              f"{name}: with 40 faults the differing tiles are not those of the 8 unrepaired PEs")
+        fused = run(ops.hyca_protected_matmul_fused, s40, 1, 0)
+        check(_bits_equal(fused, two), f"{name}: fused differs from twopass (40 faults)")
+        del clean, two, fused
+    counts = {k: v.launches for k, v in kern.items()}
+    phase("two_pass", shapes=[s[0] for s in shapes], M=TP_M, array=f"{TP_ARRAY}x{TP_ARRAY}", capacity=hyca.capacity,
+          launches=counts, twopass_24_equals_fault_free=True, twopass_40_differs_in_unrepaired_tiles=True,
+          fused_equals_twopass=True)
+    return counts
+
+
+def two_pass_integer_fused(dev, shapes, s24, s40, hyca) -> None:
+    """``hyca_protected_matmul_fused`` bitwise equal to the twopass on
+    integer-valued bf16 operands at the four shapes (24 and 40 faults)."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    for name, w0 in shapes:
+        k, n = w0.shape
+        x = torch.randint(-4, 5, (TP_M, k), generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randint(-4, 5, (k, n), generator=g, device=dev).to(torch.bfloat16)
+        for st in (s24, s40):
+            two = ops.hyca_protected_matmul_twopass(x, w, st, hyca, **TP_TILE)
+            fused = ops.hyca_protected_matmul_fused(x, w, st, hyca, **TP_TILE)
+            check(_bits_equal(two, fused), f"{name}: fused differs from twopass on integer-valued operands")
+            del two, fused
+    phase("two_pass_fused_integer", shapes=[s[0] for s in shapes], faults=[24, 40], bitwise=True)
+
+
+def _tile_bytes_ops(x, w, fpt, bm, bn) -> tuple[int, int]:
+    """Bytes (each distinct x row-panel and w column-panel read once, the
+    tiles written once) and operations of a recompute of these tiles."""
+    k = x.shape[1]
+    f = fpt.shape[0]
+    xp = len({ti for ti, _ in fpt.clamp_min(0).tolist()})
+    wp = len({tj for _, tj in fpt.clamp_min(0).tolist()})
+    return x.element_size() * k * (xp * bm + wp * bn) + 4 * f * bm * bn + 8 * f, 2 * f * bm * bn * k
+
+
+def two_pass_timing(dev, smi, shapes, xs, s24, hyca) -> tuple[dict, dict, dict]:
+    """On the qwen weights (bf16): each kernel within RAND_TOL * (|x| @ |w|)
+    of its twin (TF32 off), a recomputed tile bitwise equal to the fault-free
+    array there; then per shape the kernel's device time, its bound, its
+    plain twin's and the library call's (``torch.matmul`` of the same bf16
+    product; ``torch.bmm`` of the pre-gathered bf16 panels for the
+    recompute).  The bound takes the bf16 tensor-core peak, since the
+    operands are bf16.  Launches here are not main-path launches.  Returns
+    (os_array_matmul row, dppu_recompute row, max errors)."""
+    from repro_torch.kernels.dppu_recompute import dppu_recompute_plain, tile_panels
+    from repro_torch.kernels.ops import fault_grids, tile_fault_table
+    from repro_torch.kernels.os_array_matmul import os_array_matmul_plain
+
+    kern = _two_pass_kernels()
+    launches0 = {k: v.launches for k, v in kern.items()}
+    os_k, dppu_k = kern["os_array_matmul"], kern["dppu_recompute"]
+    bit, val, faulty, _ = (t.to(dev) for t in fault_grids(s24, TP_ARRAY, TP_ARRAY, hyca.capacity))
+    healthy = torch.zeros_like(faulty)
+    bm, bn = TP_TILE["bm"], TP_TILE["bn"]
+    geo = dict(rows=TP_ARRAY, cols=TP_ARRAY, **TP_TILE)
+    rows = {"os_array_matmul": {}, "dppu_recompute": {}}
+    err = {"os_array_matmul": 0.0, "dppu_recompute": 0.0}
+    rel = {"os_array_matmul": 0.0, "dppu_recompute": 0.0}
+    for name, w in shapes:
+        x = xs[w.shape[0]]
+        m, k, n = x.shape[0], x.shape[1], w.shape[1]
+        fpt = torch.tensor(tile_fault_table(s24, hyca, m // bm, n // bn), dtype=torch.int32)
+        # tolerance against the twins
+        clean = os_k(x, w, bit, val, healthy, **geo)
+        diff = clean - os_array_matmul_plain(x, w, bit, val, healthy, bm=bm, bn=bn)
+        diff.abs_()
+        scale = torch.matmul(x.float().abs(), w.float().abs()).add_(1e-30)
+        e, r = float(diff.max()), float((diff / scale).max())
+        check(r <= RAND_TOL, f"os_array_matmul {name}: {r} of |x|@|w| from its twin, beyond {RAND_TOL}")
+        err["os_array_matmul"], rel["os_array_matmul"] = max(err["os_array_matmul"], e), max(rel["os_array_matmul"], r)
+        del diff, scale
+        tiles = dppu_k(x, w, fpt, **TP_TILE)
+        plain = dppu_recompute_plain(x, w, fpt, bm=bm, bn=bn)
+        tscale = dppu_recompute_plain(x.abs(), w.abs(), fpt, bm=bm, bn=bn).add_(1e-30)
+        tdiff = (tiles - plain).abs_()
+        e, r = float(tdiff.max()), float((tdiff / tscale).max())
+        check(r <= RAND_TOL, f"dppu_recompute {name}: {r} of |x|@|w| from its twin, beyond {RAND_TOL}")
+        err["dppu_recompute"], rel["dppu_recompute"] = max(err["dppu_recompute"], e), max(rel["dppu_recompute"], r)
+        ti, tj = fpt[:, 0].tolist(), fpt[:, 1].tolist()
+        for f in range(0, len(ti), max(1, len(ti) // 16)):
+            check(_bits_equal(tiles[f], clean[ti[f] * bm:(ti[f] + 1) * bm, tj[f] * bn:(tj[f] + 1) * bn]),
+                  f"dppu_recompute {name}: tile {f} differs from the fault-free array")
+        del clean, tiles, plain, tscale, tdiff
+        # times
+        iters = 10
+        c_k, d_k = measure(lambda a, b: os_k(a, b, bit, val, faulty, **geo), [(x, w)], iters)
+        c_p, d_p = measure(lambda a, b: os_array_matmul_plain(a, b, bit, val, faulty, bm=bm, bn=bn), [(x, w)], iters)
+        c_l, d_l = measure(torch.matmul, [(x, w)], iters)
+        use_dev = None not in (d_k, d_p, d_l)
+        t = (d_k, d_p, d_l) if use_dev else (c_k, c_p, c_l)
+        b, by = bound_ms(2 * (m * k + k * n) + 4 * m * n + 2 * 4 * TP_ARRAY * TP_ARRAY, 2 * m * n * k, torch.bfloat16)
+        rows["os_array_matmul"][name] = dict(M=m, K=k, N=n, ms=t[0], plain_ms=t[1], library_ms=t[2], bound_ms=b,
+                                             bound_by=by, call_ms=c_k, ms_source="profiler" if use_dev else "events")
+        phase("time_os_array_matmul", shape=name, **rows["os_array_matmul"][name], bound_share=b / t[0], card=smi)
+        tr, tc = tile_panels(fpt, bm, bn, dev)
+        xs_g, ws_g = x[tr], w[:, tc].permute(1, 0, 2)  # the pre-gathered bf16 panels
+        c_k, d_k = measure(lambda a, b: dppu_k(a, b, fpt, **TP_TILE), [(x, w)], iters)
+        c_p, d_p = measure(lambda a, b: dppu_recompute_plain(a, b, fpt, bm=bm, bn=bn), [(x, w)], iters)
+        c_l, d_l = measure(torch.bmm, [(xs_g, ws_g)], iters)
+        use_dev = None not in (d_k, d_p, d_l)
+        t = (d_k, d_p, d_l) if use_dev else (c_k, c_p, c_l)
+        nbytes, ops_ = _tile_bytes_ops(x, w, fpt, bm, bn)
+        b, by = bound_ms(nbytes, ops_, torch.bfloat16)
+        rows["dppu_recompute"][name] = dict(F=fpt.shape[0], K=k, ms=t[0], plain_ms=t[1], library_ms=t[2], bound_ms=b,
+                                            bound_by=by, call_ms=c_k, ms_source="profiler" if use_dev else "events")
+        phase("time_dppu_recompute", shape=name, **rows["dppu_recompute"][name], bound_share=b / t[0], card=smi)
+        del xs_g, ws_g
+    for k, v in kern.items():
+        v.launches = launches0[k]
+    phase("two_pass_tolerance", random_tol=f"{RAND_TOL}*(|x|@|w|)", tf32=torch.backends.cuda.matmul.allow_tf32,
+          max_abs_err=err, max_err_over_scale=rel, peak="bf16 989 TFLOP/s (bf16 operands)")
+    return rows["os_array_matmul"], rows["dppu_recompute"], err
+
+
+def two_pass_phase(dev, smi, bundle) -> dict:
+    """The kernel tier's phase: checks, the main path with its launch counts,
+    tolerance and times.  Returns {kernel: its row of the kernel table}."""
+    shapes = two_pass_weights(bundle)
+    s24, s40, hyca = two_pass_states()
+    two_pass_kernel_checks(dev, shapes, s24, hyca)
+    two_pass_integer_fused(dev, shapes, s24, s40, hyca)
+    g = torch.Generator(device=dev).manual_seed(6)
+    # activations of a 4 x 1024-token prefill, one per input width
+    xs = {k: torch.randn((TP_M, k), generator=g, device=dev).to(torch.bfloat16) for k in sorted({w.shape[0] for _, w in shapes})}
+    counts = two_pass_main_path(dev, shapes, xs, s24, s40, hyca)
+    os_rows, dppu_rows, err = two_pass_timing(dev, smi, shapes, xs, s24, hyca)
+    out = {}
+    for name, per, replaces in (("os_array_matmul", os_rows, "src/repro/kernels/os_array_matmul.py:57"),
+                                ("dppu_recompute", dppu_rows, "src/repro/kernels/dppu_recompute.py:49")):
+        # one call at each of the four shapes: the pipeline over layer 0's q, up, down and the head
+        out[name] = {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
+                     "replaces": replaces, "launches": counts[name], "max_abs_err": err[name],
+                     **{key: sum(p[key] for p in per.values()) for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                     "bound_by": "operations" if all(p["bound_by"] == "operations" for p in per.values()) else "bytes",
+                     "per_shape": per}
+    return out
+
+
 def main() -> None:
     smi = device_phase()
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
@@ -596,6 +911,8 @@ def main() -> None:
             launches[name] += n
         per_path[arch] = timing_phase(dev, smi, arch, runs)
         profile_phase(bundle, smi)
+        if arch == QWEN:  # the kernel tier on the served model's weights
+            two_pass = two_pass_phase(dev, smi, bundle)
         del bundle, runs
         gc.collect()
         torch.cuda.empty_cache()  # the next model's bundle gets the card's memory
@@ -619,6 +936,8 @@ def main() -> None:
          "replaces": "src/repro/kernels/dppu_recompute.py:135",
          "launches": launches["probe_check"], "max_abs_err": 0.0, **timed["probe_check"],
          "library_ms": None},
+        two_pass["os_array_matmul"],
+        two_pass["dppu_recompute"],
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -241,7 +241,12 @@ def _corrupt(out: torch.Tensor, pe_bit, pe_val, pe_faulty) -> torch.Tensor:
     m, n = out.shape
     rows, cols = pe_bit.shape
     mi, ni = _residues(m, n, rows, cols, out.device)
-    bi, vi, fi = pe_bit[mi, ni], pe_val[mi, ni], pe_faulty[mi, ni]
+    return _corrupt_elems(out, pe_bit[mi, ni], pe_val[mi, ni], pe_faulty[mi, ni])
+
+
+def _corrupt_elems(out: torch.Tensor, bi, vi, fi) -> torch.Tensor:
+    """Stuck-at ``bi`` at ``vi`` wherever ``fi``, the three given per element
+    (broadcast against ``out``)."""
     if not out.dtype.is_floating_point:
         acc = out.to(torch.int32)
         return torch.where(fi, _stuck_at_i32(acc, bi, vi), acc).to(out.dtype)

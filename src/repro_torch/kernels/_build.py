@@ -3,9 +3,10 @@
 Each ``src/repro_torch/csrc/<name>.cu`` is compiled on first use by ``nvcc``
 into its own shared library with a plain C interface
 (``build/repro_torch/<name>-<hash>.so`` at the repository root) and loaded with
-``ctypes``.  The file name carries a hash of the source and the flags, so a
-library is rebuilt only when its source changes.  :func:`build_all` starts one
-``nvcc`` per source at once and waits for all of them.
+``ctypes``.  The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a library is rebuilt only when one of them
+changes.  :func:`build_all` starts one ``nvcc`` per source at once and waits
+for all of them.
 
 Nothing here runs at import time: the CPU tests import every module, and this
 host has no ``nvcc``.
@@ -46,7 +47,8 @@ def sources() -> list[str]:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (csrc/*.cuh) count as part of every source
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -1,15 +1,24 @@
-"""DPPU scan probe: the CUDA kernel and its plain PyTorch twin.
+"""The DPPU's kernels: the scan probe and the grouped recompute, each a CUDA
+kernel with its plain PyTorch twin.
 
-Replaces the Pallas TPU kernel ``repro/kernels/dppu_recompute.py::probe_check``
-(the AR == BAR + PR check of paper Section IV-D over one row-block of the
-virtual PE array).  ``csrc/probe_check.cu`` accumulates in int32, which is
-exactly :func:`probe_check_ref`.  The grouped-DPPU recompute kernel
-``dppu_recompute`` and its ``scatter_overwrite`` partner come with a later
-slice.
+``probe_check`` replaces the Pallas TPU kernel
+``repro/kernels/dppu_recompute.py::probe_check`` (the AR == BAR + PR check of
+paper Section IV-D over one row-block of the virtual PE array).
+``csrc/probe_check.cu`` accumulates in int32, which is exactly
+:func:`probe_check_ref`.
 
-:func:`probe_check` launches the kernel for CUDA tensors and computes the
-plain version for CPU tensors.  ``probe_check.launches`` counts kernel
-launches and nothing else.
+``dppu_recompute`` replaces the Pallas TPU kernel
+``repro/kernels/dppu_recompute.py::dppu_recompute`` (paper Section IV-C1):
+pass 2 of the two-pass pipeline.  It recomputes the (bm, bn) output tiles
+named by a tile-level fault PE table, reading only each tile's x row-panel
+and w column-panel (the paper's AGU).  ``csrc/dppu_recompute.cu`` sums K in
+the order ``csrc/os_array_matmul.cu`` does, so a recomputed tile equals the
+fault-free array's output bit for bit.  Its partner
+:func:`scatter_overwrite` (the output-buffer overwrite) is plain PyTorch.
+
+Each wrapper launches its kernel for CUDA tensors and computes its plain
+twin for CPU tensors.  ``probe_check.launches`` and
+``dppu_recompute.launches`` count kernel launches and nothing else.
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ import torch
 
 from repro_torch.core.engine import _int_matmul
 from repro_torch.kernels import _build
+from repro_torch.kernels.os_array_matmul import CTA_TILE, MAX_GRID_Y, check_blocks, check_cuda_operands
 
 
 def probe_check_ref(px: torch.Tensor, pw: torch.Tensor, ar: torch.Tensor, *,
@@ -36,7 +46,7 @@ def probe_check_ref(px: torch.Tensor, pw: torch.Tensor, ar: torch.Tensor, *,
     return ar.to(torch.int32) != pr + bar
 
 
-def _lib() -> ctypes.CDLL:
+def _probe_lib() -> ctypes.CDLL:
     lib = _build.load("probe_check")
     fn = lib.probe_check_launch
     if fn.argtypes is None:
@@ -65,7 +75,7 @@ def probe_check(px: torch.Tensor, pw: torch.Tensor, ar: torch.Tensor) -> torch.T
     px32, pw32, ar32 = (t.to(torch.int32).contiguous() for t in (px, pw, ar))
     c = pw32.shape[1]
     flags = torch.empty((b, c), dtype=torch.int32, device=px.device)
-    rc = _lib().probe_check_launch(
+    rc = _probe_lib().probe_check_launch(
         px32.data_ptr(), pw32.data_ptr(), ar32.data_ptr(), flags.data_ptr(), b, c, k,
         torch.cuda.current_stream(px.device).cuda_stream,
     )
@@ -76,3 +86,85 @@ def probe_check(px: torch.Tensor, pw: torch.Tensor, ar: torch.Tensor) -> torch.T
 
 
 probe_check.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# grouped-DPPU recompute (pass 2 of the two-pass pipeline)
+# --------------------------------------------------------------------------- #
+def tile_panels(fpt: torch.Tensor, bm: int, bn: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(F, bm) rows and (F, bn) columns of each FPT entry's tile, padding
+    (-1) clamped to tile (0, 0)."""
+    t = fpt.to(device=device, dtype=torch.long).clamp_min(0)
+    rows = t[:, :1] * bm + torch.arange(bm, device=device)
+    cols = t[:, 1:] * bn + torch.arange(bn, device=device)
+    return rows, cols
+
+
+def dppu_recompute_plain(x: torch.Tensor, w: torch.Tensor, fpt: torch.Tensor, *, bm: int,
+                         bn: int) -> torch.Tensor:
+    """Plain PyTorch version: gather each entry's x row-panel and w
+    column-panel, one f32 ``torch.bmm``.  Returns float32 (F, bm, bn)."""
+    rows, cols = tile_panels(fpt, bm, bn, x.device)
+    xs = x[rows].to(torch.float32)                               # (F, bm, K)
+    ws = w[:, cols].permute(1, 0, 2).to(torch.float32)           # (F, K, bn)
+    return torch.bmm(xs, ws)
+
+
+def _dppu_lib() -> ctypes.CDLL:
+    lib = _build.load("dppu_recompute")
+    fn = lib.dppu_recompute_launch
+    if fn.argtypes is None:
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        fn.argtypes = [p, p, p, p, i, i, i64, i64, i64, i64, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def dppu_recompute(x: torch.Tensor, w: torch.Tensor, fpt: torch.Tensor, *, bm: int = 128,
+                   bn: int = 128, bk: int = 128) -> torch.Tensor:
+    """The (bm, bn) tiles of ``x (M, K) @ w (K, N)`` named by the tile-level
+    FPT ``fpt (F, 2)`` (tile coordinates, ``-1`` padded; a padded entry
+    returns tile (0, 0)).  Returns float32 (F, bm, bn)."""
+    check_blocks("dppu_recompute", x, w, bm, bn, bk)
+    if fpt.dim() != 2 or fpt.shape[1] != 2 or fpt.dtype.is_floating_point:
+        raise ValueError(f"dppu_recompute needs an integer (F, 2) fault table, got {tuple(fpt.shape)} {fpt.dtype}")
+    gm, gn = x.shape[0] // bm, w.shape[1] // bn
+    host = fpt.cpu()
+    if bool(((host[:, 0] >= gm) | (host[:, 1] >= gn)).any()):
+        raise ValueError(f"dppu_recompute: a fault table entry lies outside the {gm} x {gn} tile grid")
+    if x.device.type == "cpu":
+        return dppu_recompute_plain(x, w, host, bm=bm, bn=bn)
+    code = check_cuda_operands("dppu_recompute", x, w)
+    if -(-max(bm, bn) // CTA_TILE) > MAX_GRID_Y:
+        raise ValueError(f"dppu_recompute takes bm, bn up to {CTA_TILE * MAX_GRID_Y}, got {(bm, bn)}")
+    f = fpt.shape[0]
+    out = torch.empty((f, bm, bn), dtype=torch.float32, device=x.device)
+    if f == 0:
+        return out
+    table = host.to(torch.int32).contiguous().to(x.device)
+    rc = _dppu_lib().dppu_recompute_launch(
+        x.data_ptr(), w.data_ptr(), table.data_ptr(), out.data_ptr(), f, x.shape[1],
+        x.stride(0), x.stride(1), w.stride(0), w.stride(1), code, bm, bn,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"dppu_recompute kernel launch failed: CUDA error {rc}")
+    dppu_recompute.launches += 1
+    return out
+
+
+dppu_recompute.launches = 0
+
+
+def scatter_overwrite(corrupted: torch.Tensor, tiles: torch.Tensor, fpt: torch.Tensor, *,
+                      bm: int, bn: int) -> torch.Tensor:
+    """Output-buffer overwrite with byte mask (paper Fig. 5 step 4): write each
+    recomputed tile ``tiles (F, bm, bn)`` over the faulty PE's output region
+    of ``corrupted (M, N)``; padded entries are no-ops.  One indexed write of
+    all valid tiles, in place: ``corrupted`` is the output buffer, and is
+    returned."""
+    fpt = fpt.to(corrupted.device)
+    keep = fpt[:, 0] >= 0
+    rows, cols = tile_panels(fpt[keep], bm, bn, corrupted.device)
+    corrupted[rows[:, :, None], cols[:, None, :]] = tiles[keep].to(corrupted.dtype)
+    return corrupted

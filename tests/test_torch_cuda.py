@@ -86,3 +86,46 @@ def test_batched_kernel_matches_plain_version_on_the_card():
     assert TFM.ft_matmul_batched.launches == launches + 4
     with pytest.raises(ValueError, match=r"\(E, M, K\)"):
         TFM.ft_matmul_batched(torch.ones((2, 3, 4), device=dev), torch.ones((3, 4, 5), device=dev), and_g, or_g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm,bn", [(1, 1), (128, 128), (128, 256)])
+def test_two_pass_kernels_match_plain_versions_on_the_card(bm, bn):
+    """``os_array_matmul`` and ``dppu_recompute`` against their plain
+    versions: bitwise on integer-valued f32, bf16 and int8 operands, with a
+    contiguous and a transposed ``w``, at fault-placement tiles smaller than,
+    equal to and wider than the kernels' 128 x 128 block.  On random operands
+    a recomputed tile equals the faulty array's fault-free output bit for bit
+    (both kernels sum K in one order)."""
+    from repro_torch.kernels import os_array_matmul as TOS
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = cols = 4
+    bit = torch.tensor([[31, 0, 5, 1], [30, 2, 9, 0], [0, 30, 12, 3], [4, 4, 31, 22]], dtype=torch.int32, device=dev)
+    val = torch.tensor([[1, 0, 1, 1], [0, 1, 0, 0], [1, 1, 0, 1], [0, 0, 0, 1]], dtype=torch.int32, device=dev)
+    faulty = torch.rand((rows, cols), generator=g, device=dev) < 0.5
+    m, k, n = 256, 200, 512
+    gm, gn = m // bm, n // bn
+    fpt = torch.tensor([[gm - 1, 0], [-1, -1], [0, gn - 1], [gm // 2, gn // 2]], dtype=torch.int32)
+    launches = (TOS.os_array_matmul.launches, TDR.dppu_recompute.launches)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        x = torch.randint(-4, 5, (m, k), generator=g, device=dev).to(dtype)
+        table = torch.randint(-4, 5, (n, k), generator=g, device=dev).to(dtype)
+        for w in (table.T, table.T.contiguous()):
+            got = TOS.os_array_matmul(x, w, bit, val, faulty, bm=bm, bn=bn, bk=k, rows=rows, cols=cols)
+            want = TOS.os_array_matmul_plain(x, w, bit, val, faulty, bm=bm, bn=bn)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            tiles = TDR.dppu_recompute(x, w, fpt, bm=bm, bn=bn, bk=k)
+            assert torch.equal(tiles.view(torch.int32),
+                               TDR.dppu_recompute_plain(x, w, fpt, bm=bm, bn=bn).view(torch.int32))
+    assert (TOS.os_array_matmul.launches, TDR.dppu_recompute.launches) == (launches[0] + 6, launches[1] + 6)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((k, n), generator=g, device=dev).to(torch.bfloat16)
+    clean = TOS.os_array_matmul(x, w, bit, val, torch.zeros_like(faulty), bm=bm, bn=bn, bk=k, rows=rows, cols=cols)
+    tiles = TDR.dppu_recompute(x, w, fpt, bm=bm, bn=bn, bk=k)
+    for f, (ti, tj) in enumerate(fpt.clamp_min(0).tolist()):
+        assert torch.equal(tiles[f], clean[ti * bm:(ti + 1) * bm, tj * bn:(tj + 1) * bn])

@@ -38,6 +38,7 @@ def test_port_imports_with_jax_and_reference_package_blocked():
         "import repro_torch.kernels.dppu_recompute, repro_torch.kernels._build\n"
         "import repro_torch.configs, repro_torch.core.scan, repro_torch.models.moe\n"
         "import repro_torch.configs.granite_moe_3b, repro_torch.configs.deepseek_moe_16b\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.os_array_matmul, repro_torch.kernels.ref\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )

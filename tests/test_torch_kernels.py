@@ -152,7 +152,7 @@ def test_cpu_calls_build_nothing_and_count_nothing(monkeypatch):
                     torch.zeros((2, 4), dtype=torch.int32))
     assert (TFM.ft_matmul.launches, TDR.probe_check.launches) == before == (0, 0)
     assert _build._LIBS == {}
-    assert sorted(_build.sources()) == ["ft_matmul", "probe_check"]
+    assert sorted(_build.sources()) == ["dppu_recompute", "ft_matmul", "os_array_matmul", "probe_check"]
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
