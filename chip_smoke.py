@@ -5,7 +5,9 @@
 Phases, each printed on its own line; any failure exits non-zero:
 
   1. device   — require CUDA; print the card's name and power limit;
-  2. build    — compile every kernel under src/repro_torch/csrc with nvcc;
+  2. build    — compile every kernel under src/repro_torch/csrc with nvcc,
+     one nvcc per source in parallel, and print each kernel's registers,
+     shared memory and spill bytes as nvcc -Xptxas -v reported them;
   3. ft_matmul against ft_matmul_ref at every shape of the qwen1.5-0.5b and
      granite-moe-3b-a800m decode steps (M=4) plus a ragged one, bf16 and
      f32, on an 8x8 array with stuck-at-0/1 faults (bit 31 included), a
@@ -28,7 +30,8 @@ Phases, each printed on its own line; any failure exits non-zero:
      same server on the CPU;
   7. times, per model: per kernel and shape, the kernel, its plain version,
      one PyTorch call of the same bf16 product (device times from the
-     profiler, per-call times from CUDA events), and the bound; the
+     profiler, per-call times from CUDA events), the bound and the achieved
+     TFLOP/s; the
      decode-step time and tokens/s; a profile of where one protected decode
      step's time goes.  qwen1.5-0.5b is served, timed and freed before
      granite-moe-3b-a800m is built;
@@ -43,8 +46,9 @@ Phases, each printed on its own line; any failure exits non-zero:
      faults differing in exactly the tiles of the 8 PEs the DPPU cannot
      repair; the fused single pass bitwise equal to the twopass; 1
      os_array_matmul + 1 dppu_recompute launch per twopass call with faults,
-     1 with none; per shape the kernels' times beside bound, plain and
-     library.
+     1 with none; per shape the kernels' times and TFLOP/s beside bound,
+     plain and library.  bf16 runs both kernels on the tensor cores (TMA +
+     wgmma), f32 and int8 on the CUDA cores.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -133,11 +137,25 @@ def device_phase() -> str:
 
 
 def build_phase() -> None:
+    """Build every kernel, then print what ``nvcc -Xptxas -v`` reported for
+    each: registers a thread, static shared memory and spill bytes, and for
+    the libraries with a TMA ring its dynamic shared memory."""
+    import ctypes
+
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     libs = _build.build_all()
     phase("build", seconds=round(time.perf_counter() - t0, 3), libraries=sorted(libs))
+    for name in sorted(libs):
+        ring = getattr(_build.load(name), f"{name}_dynamic_smem", None)
+        if ring is not None:
+            ring.restype = ctypes.c_longlong
+        usage = _build.ptxas_usage(name)
+        for k in usage:
+            if "wgmma" in k["kernel"]:  # the tensor-core kernels hold their accumulators in registers
+                check(k["spill_stores"] == k["spill_loads"] == 0, f"{k['kernel']} spills: {k}")
+        phase("ptxas", library=name, kernels=usage, dynamic_smem_bytes=None if ring is None else ring())
 
 
 # --------------------------------------------------------------------------- #
@@ -429,10 +447,11 @@ def time_cuda(fn, args_list, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, args_list, iters: int) -> float | None:
+def device_ms(fn, args_list, iters: int, only: str | None = None) -> float | None:
     """Mean device (kernel) ms per call from ``torch.profiler``, without
-    the host's launch overhead; None when the profiler reports no device
-    time."""
+    the host's launch overhead: of every kernel the call launches, or of
+    those whose name holds ``only``; None when the profiler reports no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     for a in args_list[:3]:
@@ -442,7 +461,7 @@ def device_ms(fn, args_list, iters: int) -> float | None:
         for i in range(iters):
             fn(*args_list[i % len(args_list)])
         torch.cuda.synchronize()
-    us = sum(_self_device_us(e) for e in prof.key_averages())
+    us = sum(_self_device_us(e) for e in prof.key_averages() if only is None or only in e.key)
     return us / 1e3 / iters if us > 0 else None
 
 
@@ -454,6 +473,11 @@ def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def tflops(ops: float, ms: float) -> float:
+    """Achieved TFLOP/s of ``ops`` operations in ``ms`` milliseconds."""
+    return ops / (ms * 1e-3) / 1e12
 
 
 def measure(fn, args_list, iters: int) -> tuple[float, float | None]:
@@ -516,8 +540,8 @@ def timing_phase(dev, smi: str, arch: str, runs) -> dict[str, dict]:
             b, by = bound_ms(nbytes, 2 * e * m * n * k, torch.bfloat16)
             phase(f"time_{kname}", arch=arch, shape=name, E=e, M=m, K=k, N=n, launches_per_step=per,
                   ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b, bound_by=by,
-                  bound_share=b / t_k, call_ms=c_k, plain_call_ms=c_p, library_call_ms=c_l,
-                  ms_source=src, card=smi)
+                  bound_share=b / t_k, tflops=tflops(2 * e * m * n * k, t_k), call_ms=c_k, plain_call_ms=c_p,
+                  library_call_ms=c_l, ms_source=src, card=smi)
             for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b), ("call_ms", c_k)):
                 tot[key] += per * v
             del ws
@@ -847,10 +871,14 @@ def two_pass_timing(dev, smi, shapes, xs, s24, hyca) -> tuple[dict, dict, dict]:
         c_l, d_l = measure(torch.matmul, [(x, w)], iters)
         use_dev = None not in (d_k, d_p, d_l)
         t = (d_k, d_p, d_l) if use_dev else (c_k, c_p, c_l)
+        # the kernel alone, without the wrapper's kernels that build its mask grids
+        alone = device_ms(lambda a, b: os_k(a, b, bit, val, faulty, **geo), [(x, w)], iters, only="os_array_matmul_wgmma")
         b, by = bound_ms(2 * (m * k + k * n) + 4 * m * n + 2 * 4 * TP_ARRAY * TP_ARRAY, 2 * m * n * k, torch.bfloat16)
         rows["os_array_matmul"][name] = dict(M=m, K=k, N=n, ms=t[0], plain_ms=t[1], library_ms=t[2], bound_ms=b,
-                                             bound_by=by, call_ms=c_k, ms_source="profiler" if use_dev else "events")
-        phase("time_os_array_matmul", shape=name, **rows["os_array_matmul"][name], bound_share=b / t[0], card=smi)
+                                             bound_by=by, call_ms=c_k, kernel_alone_ms=alone,
+                                             ms_source="profiler" if use_dev else "events")
+        phase("time_os_array_matmul", shape=name, **rows["os_array_matmul"][name], bound_share=b / t[0],
+              tflops=tflops(2 * m * n * k, t[0]), kernel_alone_tflops=alone and tflops(2 * m * n * k, alone), card=smi)
         tr, tc = tile_panels(fpt, bm, bn, dev)
         xs_g, ws_g = x[tr], w[:, tc].permute(1, 0, 2)  # the pre-gathered bf16 panels
         c_k, d_k = measure(lambda a, b: dppu_k(a, b, fpt, **TP_TILE), [(x, w)], iters)
@@ -862,7 +890,8 @@ def two_pass_timing(dev, smi, shapes, xs, s24, hyca) -> tuple[dict, dict, dict]:
         b, by = bound_ms(nbytes, ops_, torch.bfloat16)
         rows["dppu_recompute"][name] = dict(F=fpt.shape[0], K=k, ms=t[0], plain_ms=t[1], library_ms=t[2], bound_ms=b,
                                             bound_by=by, call_ms=c_k, ms_source="profiler" if use_dev else "events")
-        phase("time_dppu_recompute", shape=name, **rows["dppu_recompute"][name], bound_share=b / t[0], card=smi)
+        phase("time_dppu_recompute", shape=name, **rows["dppu_recompute"][name], bound_share=b / t[0],
+              tflops=tflops(ops_, t[0]), card=smi)
         del xs_g, ws_g
     for k, v in kern.items():
         v.launches = launches0[k]

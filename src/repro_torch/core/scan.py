@@ -119,7 +119,7 @@ class ScanEngine:
     on a card, the int32 reference on the CPU."""
 
     cfg: ScanConfig
-    device: str = "cpu"
+    device: str = "cuda"
 
     # -- probe comparison ------------------------------------------------- #
     def _mismatch(self, px: torch.Tensor, pw: torch.Tensor, ar: torch.Tensor) -> torch.Tensor:

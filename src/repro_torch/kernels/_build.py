@@ -6,7 +6,9 @@ into its own shared library with a plain C interface
 ``ctypes``.  The file name carries a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so a library is rebuilt only when one of them
 changes.  :func:`build_all` starts one ``nvcc`` per source at once and waits
-for all of them.
+for all of them.  ``nvcc`` runs with ``-Xptxas -v``; its report is kept
+beside each library (``<name>-<hash>.log``) and :func:`ptxas_usage` reads
+each kernel's registers, shared memory and spill bytes from it.
 
 Nothing here runs at import time: the CPU tests import every module, and this
 host has no ``nvcc``.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -25,7 +28,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -53,6 +56,10 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
+def log_path(name: str) -> Path:
+    return library_path(name).with_suffix(".log")
+
+
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
     out = library_path(name)
     if out.exists():
@@ -73,6 +80,7 @@ def _finish(name: str, job) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+    log_path(name).write_text(log)
     os.replace(tmp, out)
 
 
@@ -103,3 +111,29 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def _demangle(symbol: str) -> str:
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt is None:
+        return symbol
+    return subprocess.run([cxxfilt, symbol], capture_output=True, text=True).stdout.strip() or symbol
+
+
+def ptxas_usage(name: str) -> list[dict]:
+    """Each kernel of ``csrc/<name>.cu`` as ``nvcc -Xptxas -v`` reported it
+    when the library was built: registers a thread, static shared memory
+    bytes and spill store / load bytes."""
+    kernels = []
+    for line in log_path(name).read_text().splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kernels.append({"kernel": _demangle(entry.group(1)), "registers": None, "smem_bytes": 0,
+                            "spill_stores": None, "spill_loads": None})
+        elif kernels and (spill := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            kernels[-1]["spill_stores"], kernels[-1]["spill_loads"] = int(spill[1]), int(spill[2])
+        elif kernels and (regs := re.search(r"Used (\d+) registers", line)):
+            kernels[-1]["registers"] = int(regs[1])
+            smem = re.search(r"(\d+) bytes smem", line)
+            kernels[-1]["smem_bytes"] = int(smem[1]) if smem else 0
+    return kernels

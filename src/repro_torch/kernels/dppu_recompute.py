@@ -11,10 +11,13 @@ paper Section IV-D over one row-block of the virtual PE array).
 ``repro/kernels/dppu_recompute.py::dppu_recompute`` (paper Section IV-C1):
 pass 2 of the two-pass pipeline.  It recomputes the (bm, bn) output tiles
 named by a tile-level fault PE table, reading only each tile's x row-panel
-and w column-panel (the paper's AGU).  ``csrc/dppu_recompute.cu`` sums K in
-the order ``csrc/os_array_matmul.cu`` does, so a recomputed tile equals the
-fault-free array's output bit for bit.  Its partner
-:func:`scatter_overwrite` (the output-buffer overwrite) is plain PyTorch.
+and w column-panel (the paper's AGU).  ``csrc/dppu_recompute.cu`` runs the
+main loop ``csrc/os_array_matmul.cu`` runs for the operands' dtype (for bf16
+the tensor cores', on the same array-aligned pieces, so it takes the same
+layouts, :func:`~repro_torch.kernels.os_array_matmul.check_tma_layout`), so
+a recomputed tile equals the fault-free array's output bit for bit.  Its
+partner :func:`scatter_overwrite` (the output-buffer overwrite) is plain
+PyTorch.
 
 Each wrapper launches its kernel for CUDA tensors and computes its plain
 twin for CPU tensors.  ``probe_check.launches`` and
@@ -28,7 +31,7 @@ import torch
 
 from repro_torch.core.engine import _int_matmul
 from repro_torch.kernels import _build
-from repro_torch.kernels.os_array_matmul import CTA_TILE, MAX_GRID_Y, check_blocks, check_cuda_operands
+from repro_torch.kernels.os_array_matmul import MAX_GRID_Y, check_blocks, check_cuda_operands, check_tma_layout
 
 
 def probe_check_ref(px: torch.Tensor, pw: torch.Tensor, ar: torch.Tensor, *,
@@ -115,7 +118,7 @@ def _dppu_lib() -> ctypes.CDLL:
     fn = lib.dppu_recompute_launch
     if fn.argtypes is None:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [p, p, p, p, i, i, i64, i64, i64, i64, i, i, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i64, i64, i64, i64, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -135,15 +138,19 @@ def dppu_recompute(x: torch.Tensor, w: torch.Tensor, fpt: torch.Tensor, *, bm: i
     if x.device.type == "cpu":
         return dppu_recompute_plain(x, w, host, bm=bm, bn=bn)
     code = check_cuda_operands("dppu_recompute", x, w)
-    if -(-max(bm, bn) // CTA_TILE) > MAX_GRID_Y:
-        raise ValueError(f"dppu_recompute takes bm, bn up to {CTA_TILE * MAX_GRID_Y}, got {(bm, bn)}")
+    if x.dtype == torch.bfloat16:
+        check_tma_layout("dppu_recompute", x, w)
+    # grid (F, pieces of bm, pieces of bn): 64 x 128 on the tensor cores, 128 x 128 else
+    if bm // 64 + 2 > MAX_GRID_Y or bn // 128 + 2 > MAX_GRID_Y:
+        raise ValueError(f"dppu_recompute takes bm up to {64 * (MAX_GRID_Y - 2)} and bn up to "
+                         f"{128 * (MAX_GRID_Y - 2)}, got {(bm, bn)}")
     f = fpt.shape[0]
     out = torch.empty((f, bm, bn), dtype=torch.float32, device=x.device)
     if f == 0:
         return out
     table = host.to(torch.int32).contiguous().to(x.device)
     rc = _dppu_lib().dppu_recompute_launch(
-        x.data_ptr(), w.data_ptr(), table.data_ptr(), out.data_ptr(), f, x.shape[1],
+        x.data_ptr(), w.data_ptr(), table.data_ptr(), out.data_ptr(), f, x.shape[0], w.shape[1], x.shape[1],
         x.stride(0), x.stride(1), w.stride(0), w.stride(1), code, bm, bn,
         torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -8,17 +8,23 @@ the fault placement, not the kernel's block, so any bm, bn >= 1 works
 (bm = bn = 1 is the engine's element placement).
 
 ``bk``, in this module's and ``dppu_recompute``'s wrappers and in the entry
-points of ``kernels/ops.py``, is a parity-only argument: it set the Pallas
-kernels' K block, which changed only their accumulation order.  The CUDA
-kernels never read it; it is kept for the JAX signature and its
-divisibility check (:func:`check_blocks`).
+points of ``kernels/ops.py``, is the JAX signature's parity argument: it set
+the Pallas kernels' K block, which changed only their accumulation order.
+The CUDA kernels never read it (their K stage is a compile-time constant
+that both share); it is kept with its divisibility check
+(:func:`check_blocks`) because ``kernels/ops.py`` mirrors JAX's API and the
+parity tests pass it.
 
 ``csrc/os_array_matmul.cu`` takes f32, bf16 or int8 operands (both of one
-dtype), widens them in registers and reads them through their strides (the
-LM head's ``table.T`` is never copied).  The wrapper lowers the
-(bit, val, faulty) grids to the AND/OR mask pair of
-:func:`repro_torch.core.engine.fault_mask_grids`, which the kernel applies
-to each output's bit pattern.
+dtype).  bf16 runs on the tensor cores (TMA + wgmma, ``csrc/
+array_tile_wgmma.cuh``), which read x and w through TMA descriptors: x with
+unit stride along K, w with unit stride along N or, as the LM head's
+``table.T``, along K (never copied), 16-byte aligned, the other strides
+multiples of 16 bytes (:func:`check_tma_layout` raises on anything else).
+f32 and int8 run on the CUDA cores (``csrc/array_tile.cuh``) through any
+strides.  The wrapper lowers the (bit, val, faulty) grids to the AND/OR mask
+pair of :func:`repro_torch.core.engine.fault_mask_grids`, which the kernel
+applies to each output's bit pattern.
 
 :func:`os_array_matmul` launches the kernel for CUDA tensors and raises for
 anything it cannot take; for CPU tensors it computes
@@ -35,8 +41,9 @@ from repro_torch.core.engine import META_EFF_SHIFT, META_VAL_SHIFT, apply_mask_g
 from repro_torch.kernels import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-CTA_TILE = 128  # the kernel's block tile (csrc/array_tile.cuh), M and N
+CTA_TILE = 128  # the kernels' block tile in N (and in M on the CUDA cores)
 MAX_GRID_Y = 65535
+TMA_BYTES = 16  # TMA's base alignment and stride granule
 
 
 def _tile_grids(m: int, n: int, bm: int, bn: int, rows: int, cols: int, device=None):
@@ -91,6 +98,26 @@ def check_cuda_operands(name: str, x: torch.Tensor, w: torch.Tensor) -> int:
     return DTYPE_CODES[x.dtype]
 
 
+def check_tma_layout(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    """The layouts the bf16 tensor-core path reads through TMA, or a
+    ``ValueError`` naming the stride or base at fault: x (M, K) with unit
+    stride along K; w (K, N) with unit stride along N, or along K as the
+    transposed view of an (N, K) table; both bases 16-byte aligned and the
+    other strides multiples of 16 bytes."""
+    size = x.element_size()
+    if x.stride(1) != 1:
+        raise ValueError(f"{name}: bf16 x needs unit stride along K, got strides {x.stride()}")
+    w_k_major = w.stride(0) == 1 and w.stride(1) != 1
+    if not w_k_major and w.stride(1) != 1:
+        raise ValueError(f"{name}: bf16 w needs unit stride along K or N, got strides {w.stride()}")
+    for t, label, stride in ((x, "x", x.stride(0)), (w, "w", w.stride(1) if w_k_major else w.stride(0))):
+        if (stride * size) % TMA_BYTES:
+            raise ValueError(f"{name}: bf16 {label} stride {stride} ({stride * size} bytes) is not a "
+                             f"multiple of {TMA_BYTES} bytes, as TMA needs")
+        if t.data_ptr() % TMA_BYTES:
+            raise ValueError(f"{name}: bf16 {label} base is not {TMA_BYTES}-byte aligned, as TMA needs")
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("os_array_matmul")
     fn = lib.os_array_matmul_launch
@@ -115,6 +142,8 @@ def os_array_matmul(x: torch.Tensor, w: torch.Tensor, pe_bit: torch.Tensor, pe_v
     if x.device.type == "cpu":
         return os_array_matmul_plain(x, w, pe_bit, pe_val, pe_faulty, bm=bm, bn=bn)
     code = check_cuda_operands("os_array_matmul", x, w)
+    if x.dtype == torch.bfloat16:
+        check_tma_layout("os_array_matmul", x, w)
     (m, k), n = x.shape, w.shape[1]
     if -(-n // CTA_TILE) > MAX_GRID_Y:
         raise ValueError(f"os_array_matmul takes N up to {CTA_TILE * MAX_GRID_Y}, got {n}")

@@ -129,3 +129,85 @@ def test_two_pass_kernels_match_plain_versions_on_the_card(bm, bn):
     tiles = TDR.dppu_recompute(x, w, fpt, bm=bm, bn=bn, bk=k)
     for f, (ti, tj) in enumerate(fpt.clamp_min(0).tolist()):
         assert torch.equal(tiles[f], clean[ti * bm:(ti + 1) * bm, tj * bn:(tj + 1) * bn])
+
+
+@pytest.mark.cuda
+def test_bf16_tensor_core_path_ragged_and_bitwise_on_the_card():
+    """The bf16 path (TMA + wgmma) at M and N not multiples of 128 and K not a
+    multiple of its 64-deep stage, for both layouts of ``w`` (row-major and
+    the transposed view of a table): bitwise against the plain versions on
+    integer-valued operands, and on random operands every recomputed tile
+    bitwise equal to the fault-free array's output there, at placements
+    smaller than, equal to and wider than the 64 x 128 wgmma piece."""
+    from repro_torch.kernels import os_array_matmul as TOS
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows = cols = 4
+    bit = torch.randint(0, 32, (rows, cols), generator=g, device=dev, dtype=torch.int32)
+    val = torch.randint(0, 2, (rows, cols), generator=g, device=dev, dtype=torch.int32)
+    faulty = torch.rand((rows, cols), generator=g, device=dev) < 0.5
+    healthy = torch.zeros_like(faulty)
+    for (m, k, n), (bm, bn) in (((192, 72, 200), (8, 8)), ((320, 136, 264), (1, 1)), ((256, 200, 384), (128, 128)),
+                                ((320, 72, 520), (40, 104))):
+        gm, gn = m // bm, n // bn
+        fpt = torch.tensor([[gm - 1, gn - 1], [-1, -1], [0, gn - 1], [gm // 2, gn // 3], [gm - 1, 0]],
+                           dtype=torch.int32)
+        for kind in ("integer", "random"):
+            if kind == "integer":
+                x = torch.randint(-4, 5, (m, k), generator=g, device=dev).to(torch.bfloat16)
+                table = torch.randint(-4, 5, (n, k), generator=g, device=dev).to(torch.bfloat16)
+            else:
+                x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+                table = torch.randn((n, k), generator=g, device=dev).to(torch.bfloat16)
+            for w in (table.T, table.T.contiguous()):
+                got = TOS.os_array_matmul(x, w, bit, val, faulty, bm=bm, bn=bn, bk=k, rows=rows, cols=cols)
+                tiles = TDR.dppu_recompute(x, w, fpt, bm=bm, bn=bn, bk=k)
+                if kind == "integer":
+                    want = TOS.os_array_matmul_plain(x, w, bit, val, faulty, bm=bm, bn=bn)
+                    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+                    want = TDR.dppu_recompute_plain(x, w, fpt, bm=bm, bn=bn)
+                    assert torch.equal(tiles.view(torch.int32), want.view(torch.int32))
+                    continue
+                clean = TOS.os_array_matmul(x, w, bit, val, healthy, bm=bm, bn=bn, bk=k, rows=rows, cols=cols)
+                for f, (ti, tj) in enumerate(fpt.clamp_min(0).tolist()):
+                    assert torch.equal(tiles[f].view(torch.int32),
+                                       clean[ti * bm:(ti + 1) * bm, tj * bn:(tj + 1) * bn].view(torch.int32))
+    # N = 202: a ragged width that only the table's K-major layout reaches
+    x = torch.randint(-4, 5, (192, 72), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randint(-4, 5, (202, 72), generator=g, device=dev).to(torch.bfloat16).T
+    got = TOS.os_array_matmul(x, w, bit, val, faulty, bm=2, bn=2, bk=72, rows=rows, cols=cols)
+    want = TOS.os_array_matmul_plain(x, w, bit, val, faulty, bm=2, bn=2)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_bf16_layouts_tma_cannot_read_raise_on_the_card():
+    """A bf16 operand that TMA cannot describe raises ``ValueError`` naming
+    the stride or base; it is never sent down another path.  The same
+    operands in f32 run on the CUDA cores through their strides."""
+    from repro_torch.kernels import os_array_matmul as TOS
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    grids = [torch.zeros((2, 2), dtype=torch.int32, device=dev)] * 2 + [torch.zeros((2, 2), dtype=torch.bool, device=dev)]
+    x = torch.ones((64, 100), dtype=torch.bfloat16, device=dev)       # row stride 200 bytes
+    w = torch.ones((100, 128), dtype=torch.bfloat16, device=dev)
+    launches = (TOS.os_array_matmul.launches, TDR.dppu_recompute.launches)
+    fpt = torch.tensor([[0, 0]], dtype=torch.int32)
+    for xa, wa, what in ((x, w, "stride 100"),
+                         (torch.ones((64, 136), dtype=torch.bfloat16, device=dev)[:, 1:65],
+                          torch.ones((64, 128), dtype=torch.bfloat16, device=dev), "base"),
+                         (torch.ones((64, 64), dtype=torch.bfloat16, device=dev),
+                          torch.ones((128, 128), dtype=torch.bfloat16, device=dev)[::2, ::2], "unit stride")):
+        with pytest.raises(ValueError, match=what):
+            TOS.os_array_matmul(xa, wa, *grids, bm=64, bn=64, bk=1, rows=2, cols=2)
+        with pytest.raises(ValueError, match=what):
+            TDR.dppu_recompute(xa, wa, fpt, bm=64, bn=64, bk=1)
+    assert (TOS.os_array_matmul.launches, TDR.dppu_recompute.launches) == launches
+    out = TOS.os_array_matmul(x.float(), w.float(), *grids, bm=64, bn=64, bk=1, rows=2, cols=2)
+    assert torch.equal(out, torch.full((64, 128), 100.0, device=dev))

@@ -86,6 +86,20 @@ def test_entry_points_default_to_the_card(monkeypatch):
                      FaultManagerConfig(abft=True), device="cpu")
 
 
+def test_every_entry_point_defaults_to_cuda():
+    """The default device of each entry point that takes one is ``cuda``:
+    only a caller who asks gets the plain versions on the CPU."""
+    import inspect
+
+    from repro_torch.core.scan import ScanConfig, ScanEngine, build_scan_engine
+    from repro_torch.serving import FaultManager, ServerConfig
+
+    assert ServerConfig().device == "cuda"
+    assert inspect.signature(FaultManager).parameters["device"].default == "cuda"
+    assert inspect.signature(build_scan_engine).parameters["device"].default == "cuda"
+    assert ScanEngine(ScanConfig(rows=4, cols=4, window=8, block_rows=1, confirm_hits=2)).device == "cuda"
+
+
 def test_chip_smoke_refuses_without_a_card(tmp_path):
     """``chip_smoke.py`` exits non-zero and prints no result when there is no
     card (here) — and so also in a directory holding nothing else."""

@@ -371,3 +371,33 @@ def test_kernel_tier_raises_off_cpu_and_cuda():
         TOS.os_array_matmul(x, w, *grids[:3])
     with pytest.raises(ValueError, match="cuda"):
         TDR.dppu_recompute(x, w, torch.tensor([[0, 0]], dtype=torch.int32))
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["row_major_w", "table_T", "x_stride", "x_not_k_major", "x_base",
+                                  "w_no_unit_stride", "w_k_stride", "w_n_stride", "w_base"])
+def test_tma_layout_takes_the_main_path_layouts_and_raises_on_the_rest(case):
+    """``check_tma_layout``: the bf16 tensor-core path reads x (M, K) K-major
+    and w either row-major (K, N) (q/up/down) or as the transposed view of an
+    (N, K) table (the head), 16-byte aligned with 16-byte strides; anything
+    else raises a ValueError that names what is wrong."""
+    x, table = _bf16(64, 1024), _bf16(512, 1024)
+    ok = {"row_major_w": (x, _bf16(1024, 512)), "table_T": (x, table.T)}
+    if case in ok:
+        TOS.check_tma_layout("op", *ok[case])
+        return
+    bad = {
+        "x_stride": (_bf16(64, 100), _bf16(100, 512), r"x stride 100 \(200 bytes\)"),
+        "x_not_k_major": (_bf16(1024, 64).T, _bf16(1024, 512), r"x needs unit stride along K"),
+        "x_base": (_bf16(64, 1032)[:, 1:1025], _bf16(1024, 512), r"x base is not 16-byte aligned"),
+        "w_no_unit_stride": (x, _bf16(2048, 1024)[::2, ::2], r"w needs unit stride along K or N"),
+        "w_k_stride": (x, _bf16(1024, 516)[:, :512], r"w stride 516 \(1032 bytes\)"),
+        "w_n_stride": (x, _bf16(512, 1028)[:, :1024].T, r"w stride 1028 \(2056 bytes\)"),
+        "w_base": (x, _bf16(1024, 520)[:, 1:513], r"w base is not 16-byte aligned"),
+    }
+    xa, wa, msg = bad[case]
+    with pytest.raises(ValueError, match=msg):
+        TOS.check_tma_layout("op", xa, wa)
