@@ -9,15 +9,21 @@ Phases, each printed on its own line; any failure exits non-zero:
      one nvcc per source in parallel, and print each kernel's registers,
      shared memory and spill bytes as nvcc -Xptxas -v reported them;
   3. ft_matmul against ft_matmul_ref at every shape of the qwen1.5-0.5b and
-     granite-moe-3b-a800m decode steps (M=4) plus a ragged one, bf16 and
-     f32, on an 8x8 array with stuck-at-0/1 faults (bit 31 included), a
-     remap and a prune mask: bitwise on integer-valued operands and on f32
+     granite-moe-3b-a800m decode steps (M=4) plus ragged ones (M = 3 and
+     37, a 66-byte row pitch that takes the scalar instantiation, a
+     transposed table at a K that ends inside a step), bf16 and f32, on an
+     8x8 array with stuck-at-0/1 faults (bits 30 and 31 included), a remap
+     and a prune mask: bitwise on integer-valued operands and on f32
      operands that bf16 cannot hold, within a stated tolerance of the plain
-     version and of an f64 product on random operands;
+     version and of an f64 product on random operands; the same call twice
+     gives the same bits, and the kernel's bf16 store is bitwise its f32
+     output cast to bf16; each shape's plan (instantiation, cluster split,
+     strip width) is printed;
   4. ft_matmul_batched against ft_matmul_batched_ref in the same way, at the
      granite expert shapes (48 experts x 4 rows, 1536->512 and 512->1536)
-     and a ragged 5x3x1000->1000, with x read as the strided view of the
-     (b, e, c, d) dispatch layout that the MoE path hands it;
+     and ragged ones (5x3x1000->1000, M = 37, a 66-byte row pitch), with x
+     read as the strided view of the (b, e, c, d) dispatch layout that the
+     MoE path hands it;
   5. probe_check against probe_check_ref over every row-block, ± probes,
      with and without faults;
   6. each served model at full width (random weights from a seed): off,
@@ -28,12 +34,14 @@ Phases, each printed on its own line; any failure exits non-zero:
      ft_matmul 161, ft_matmul_batched 96) and probe_check twice per
      protected step; plus the model's smoke config on the card against the
      same server on the CPU;
-  7. times, per model: per kernel and shape, the kernel, its plain version,
-     one PyTorch call of the same bf16 product (device times from the
-     profiler, per-call times from CUDA events), the bound and the achieved
-     TFLOP/s; the
-     decode-step time and tokens/s; a profile of where one protected decode
-     step's time goes.  qwen1.5-0.5b is served, timed and freed before
+  7. times, per model: per kernel and shape, the call the serving path
+     makes (bf16 operands, the kernel's bf16 store) with its plan, its plain
+     version, one PyTorch call of the same bf16 product (device times from
+     the profiler, per-call times from CUDA events), the bound (2-byte
+     output) and the achieved TFLOP/s; the decode-step time and tokens/s; a
+     profile of where one protected decode step's time goes, with the casts
+     (aten::_to_copy) a step, and fused bf16 FTContext.matmul calls held to
+     one kernel each and no cast.  qwen1.5-0.5b is served, timed and freed before
      granite-moe-3b-a800m is built;
   8. the paper's two-pass pipeline (kernels/ops.py), run on qwen1.5-0.5b's
      full-width weights before they are freed: layer 0's q, up and down
@@ -97,6 +105,21 @@ EXPERT_SHAPES = {
         ("down_48x512x1536", 48, 4, 512, 1536, 32),
     ),
 }
+# shapes beside the main path's: ragged M, N and K; M = 37 (ten row tiles);
+# a row pitch that 16-byte loads cannot read (33 bf16 = 66 bytes: the scalar
+# instantiation); a transposed table (the K-fast kernel) at a K that ends
+# inside its last step
+EXTRA_SHAPES = (
+    ("ragged_3x1000x1000", 3, 1000, 1000),
+    ("m37_37x1024x1024", 37, 1024, 1024),
+    ("unaligned_5x70x33", 5, 70, 33),
+    ("head_ragged_4x1000x3000", 4, 1000, 3000),
+)
+EXTRA_EXPERT_SHAPES = (
+    ("ragged_5x3x1000x1000", 5, 3, 1000, 1000),
+    ("m37_4x37x512x256", 4, 37, 512, 256),
+    ("unaligned_3x5x70x33", 3, 5, 70, 33),
+)
 # random operands: |kernel - plain| and |kernel - f64| <= RAND_TOL * (|x| @ |w|).
 # An f32 accumulate over K terms reads ~2e-7 of that scale; an operand rounded
 # to bf16 on its way in reads ~5e-5 to 1e-4 at K = 1024..2816.
@@ -153,7 +176,9 @@ def build_phase() -> None:
             ring.restype = ctypes.c_longlong
         usage = _build.ptxas_usage(name)
         for k in usage:
-            if "wgmma" in k["kernel"]:  # the tensor-core kernels hold their accumulators in registers
+            # the tensor-core kernels hold their accumulators in registers, the
+            # ft_matmul kernels their loads in flight
+            if "wgmma" in k["kernel"] or name == "ft_matmul":
                 check(k["spill_stores"] == k["spill_loads"] == 0, f"{k['kernel']} spills: {k}")
         phase("ptxas", library=name, kernels=usage, dynamic_smem_bytes=None if ring is None else ring())
 
@@ -204,9 +229,13 @@ def _kernel_checks(name: str, kernel, plain, operands, and_g, or_g, dtype) -> tu
         torch.cuda.synchronize()
         check(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
               f"{name} {dtype} {kind} operands: not bitwise equal")
+        _bf16_store_check(name, kernel, x, w, and_g, or_g, got)
     x, w = operands("random")
     clean = kernel(x, w, keep, zero)
     faulted = kernel(x, w, and_g, or_g)
+    check(torch.equal(kernel(x, w, and_g, or_g).view(torch.int32), faulted.view(torch.int32)),
+          f"{name} {dtype}: the same call twice gave other bits")
+    _bf16_store_check(name, kernel, x, w, and_g, or_g, faulted)
     ref = plain(x, w, keep, zero)
     exact = torch.matmul(x.double(), w.double())
     scale = torch.matmul(x.double().abs(), w.double().abs()) + 1e-30
@@ -222,6 +251,18 @@ def _kernel_checks(name: str, kernel, plain, operands, and_g, or_g, dtype) -> tu
     return float(err.max()), max(float((err / scale).max()), float((err64 / scale).max()))
 
 
+def _bf16_store_check(name: str, kernel, x, w, and_g, or_g, f32_out) -> None:
+    """The kernel's bf16 store bitwise equal to its f32 output cast to bf16
+    on the card, NaNs (stuck exponent bits) and their payloads included:
+    both round with cvt.rn.bf16.f32."""
+    got = kernel(x, w, and_g, or_g, out_dtype=torch.bfloat16)
+    want = f32_out.to(torch.bfloat16)
+    check(got.dtype == torch.bfloat16 and torch.equal(got.view(torch.int16), want.view(torch.int16)),
+          f"{name}: bf16 store is not the f32 output cast to bf16 "
+          f"({int((got.view(torch.int16) != want.view(torch.int16)).sum())} elements, "
+          f"{int(torch.isnan(want).sum())} NaN in the cast)")
+
+
 def _draw(g, dev, dtype, kind: str, shape, scale: float, frac: bool):
     if kind == "random":
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
@@ -233,13 +274,14 @@ def _draw(g, dev, dtype, kind: str, shape, scale: float, frac: bool):
 
 
 def ft_matmul_phase(dev) -> float:
-    from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_ref
+    from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_ref, plan_of
 
     g = torch.Generator(device=dev).manual_seed(0)
     and_g, or_g = fault_grids(dev)
     max_err = max_rel = 0.0
+    plans = {}
     shapes = ([(n, m, k, nn) for arch in (QWEN, GRANITE) for n, m, k, nn, _ in DECODE_SHAPES[arch]]
-              + [("ragged_3x1000x1000", 3, 1000, 1000)])
+              + list(EXTRA_SHAPES))
     for name, m, k, n in shapes:
         head = name.startswith("head")
         for dtype in (torch.bfloat16, torch.float32):
@@ -252,10 +294,15 @@ def ft_matmul_phase(dev) -> float:
 
             e, r = _kernel_checks(f"ft_matmul {name}", ft_matmul, ft_matmul_ref, operands, and_g, or_g, dtype)
             max_err, max_rel = max(max_err, e), max(max_rel, r)
+            plans[f"{name} {str(dtype)[6:]}"] = _plan_str(plan_of(*operands("integer")))
     phase("ft_matmul", shapes=[s[0] for s in shapes], dtypes=["bf16", "f32"],
-          bitwise=["integer", "f32 frac_x", "f32 frac_w"], random_tol=f"{RAND_TOL}*(|x|@|w|)",
-          max_abs_err=max_err, max_err_over_scale=max_rel)
+          bitwise=["integer", "f32 frac_x", "f32 frac_w", "bf16 store = f32 cast", "repeat call"],
+          random_tol=f"{RAND_TOL}*(|x|@|w|)", max_abs_err=max_err, max_err_over_scale=max_rel, plans=plans)
     return max_err
+
+
+def _plan_str(plan) -> str:
+    return f"{plan.layout} S={plan.split} BN={plan.bn}"
 
 
 def dispatch_view(t: torch.Tensor) -> torch.Tensor:
@@ -266,12 +313,13 @@ def dispatch_view(t: torch.Tensor) -> torch.Tensor:
 
 
 def ft_matmul_batched_phase(dev) -> float:
-    from repro_torch.kernels.ft_matmul import ft_matmul_batched, ft_matmul_batched_ref
+    from repro_torch.kernels.ft_matmul import ft_matmul_batched, ft_matmul_batched_ref, plan_of
 
     g = torch.Generator(device=dev).manual_seed(2)
     and_g, or_g = fault_grids(dev)
     max_err = max_rel = 0.0
-    shapes = [s[:5] for s in EXPERT_SHAPES[GRANITE]] + [("ragged_5x3x1000x1000", 5, 3, 1000, 1000)]
+    plans = {}
+    shapes = [s[:5] for s in EXPERT_SHAPES[GRANITE]] + list(EXTRA_EXPERT_SHAPES)
     for name, e, m, k, n in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             def operands(kind: str):
@@ -282,9 +330,11 @@ def ft_matmul_batched_phase(dev) -> float:
             er, r = _kernel_checks(f"ft_matmul_batched {name}", ft_matmul_batched, ft_matmul_batched_ref,
                                    operands, and_g, or_g, dtype)
             max_err, max_rel = max(max_err, er), max(max_rel, r)
+            plans[f"{name} {str(dtype)[6:]}"] = _plan_str(plan_of(*operands("integer")))
     phase("ft_matmul_batched", shapes=[s[0] for s in shapes], dtypes=["bf16", "f32"],
-          x_layout="(b, e, c, d) strided view", bitwise=["integer", "f32 frac_x", "f32 frac_w"],
-          random_tol=f"{RAND_TOL}*(|x|@|w|)", max_abs_err=max_err, max_err_over_scale=max_rel)
+          x_layout="(b, e, c, d) strided view",
+          bitwise=["integer", "f32 frac_x", "f32 frac_w", "bf16 store = f32 cast", "repeat call"],
+          random_tol=f"{RAND_TOL}*(|x|@|w|)", max_abs_err=max_err, max_err_over_scale=max_rel, plans=plans)
     return max_err
 
 
@@ -451,7 +501,10 @@ def device_ms(fn, args_list, iters: int, only: str | None = None) -> float | Non
     """Mean device (kernel) ms per call from ``torch.profiler``, without
     the host's launch overhead: of every kernel the call launches, or of
     those whose name holds ``only``; None when the profiler reports no
-    device time."""
+    device time.  The profiler can drop some device events of a window (on
+    an H100 with torch 2.11 it reported 18 or 19 of 20 launches), so
+    each kernel's mean time per reported launch is taken times its launches
+    per call, not its reported total over the calls."""
     from torch.profiler import ProfilerActivity, profile
 
     for a in args_list[:3]:
@@ -461,8 +514,9 @@ def device_ms(fn, args_list, iters: int, only: str | None = None) -> float | Non
         for i in range(iters):
             fn(*args_list[i % len(args_list)])
         torch.cuda.synchronize()
-    us = sum(_self_device_us(e) for e in prof.key_averages() if only is None or only in e.key)
-    return us / 1e3 / iters if us > 0 else None
+    us = sum(_self_device_us(e) / e.count * -(-e.count // iters) for e in prof.key_averages()
+             if (only is None or only in e.key) and _self_device_us(e) > 0)
+    return us / 1e3 if us > 0 else None
 
 
 def _self_device_us(evt) -> float:
@@ -503,7 +557,11 @@ def timing_phase(dev, smi: str, arch: str, runs) -> dict[str, dict]:
     the device time from the profiler where it reports one (else the
     per-call time); ``call_ms`` is the time per call as a Python loop sees
     it.  Returns {kernel: per-step totals}."""
-    from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_batched, ft_matmul_batched_ref, ft_matmul_ref
+    from repro_torch.kernels import ft_matmul as FM
+
+    # the call the serving path makes: bf16 operands, the kernel's bf16 store
+    def bf16_store(fn):
+        return lambda x, w, a, o: fn(x, w, a, o, out_dtype=torch.bfloat16)
 
     g = torch.Generator(device=dev).manual_seed(1)
     and_g, or_g = fault_grids(dev)
@@ -525,20 +583,23 @@ def timing_phase(dev, smi: str, arch: str, runs) -> dict[str, dict]:
                     if head:
                         return (torch.randn((n, k), generator=g, device=dev) * 0.02).to(torch.bfloat16).T
                     return (torch.randn((k, n), generator=g, device=dev) * 0.02).to(torch.bfloat16)
-                kernel, plain, library = ft_matmul, ft_matmul_ref, torch.matmul
+                kernel, plain, library = bf16_store(FM.ft_matmul), bf16_store(FM.ft_matmul_ref), torch.matmul
             else:
                 _, e, m, k, n, _ = shape
                 x = dispatch_view(torch.randn((m, e, 1, k), generator=g, device=dev).to(torch.bfloat16))
 
                 def weight():
                     return (torch.randn((e, k, n), generator=g, device=dev) * 0.02).to(torch.bfloat16)
-                kernel, plain, library = ft_matmul_batched, ft_matmul_batched_ref, torch.bmm
+                kernel, plain, library = (bf16_store(FM.ft_matmul_batched), bf16_store(FM.ft_matmul_batched_ref),
+                                          torch.bmm)
             w_bytes = 2 * e * k * n
             ws = [weight() for _ in range(max(1, min(64, -(-2 * L2_BYTES // w_bytes))))]
             (t_k, t_p, t_l), (c_k, c_p, c_l), src = _time_shape(kernel, plain, library, x, ws, and_g, or_g)
-            nbytes = 2 * e * m * k + w_bytes + 4 * e * m * n + 2 * 4 * ROWS * COLS
+            # bf16 x and w read once, the bf16 output written once, the mask pair
+            nbytes = 2 * e * m * k + w_bytes + 2 * e * m * n + 2 * 4 * ROWS * COLS
             b, by = bound_ms(nbytes, 2 * e * m * n * k, torch.bfloat16)
             phase(f"time_{kname}", arch=arch, shape=name, E=e, M=m, K=k, N=n, launches_per_step=per,
+                  plan=_plan_str(FM.plan_of(x, ws[0])), out_dtype="bf16",
                   ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b, bound_by=by,
                   bound_share=b / t_k, tflops=tflops(2 * e * m * n * k, t_k), call_ms=c_k, plain_call_ms=c_p,
                   library_call_ms=c_l, ms_source=src, card=smi)
@@ -580,6 +641,46 @@ def time_probe_check(dev, smi: str) -> dict:
     return dict(ms=t_pk, plain_ms=t_pp, bound_ms=pb, bound_by=pby)
 
 
+LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
+def fused_call_launches(bundle) -> dict:
+    """Protected ``FTContext.matmul`` calls at the served model's decode
+    shape under ``dispatch="fused"``, profiled after a warm-up (mask grids
+    cached): each must launch the kernel once and nothing else, with no cast
+    after it, and return bf16 (the kernel's own store)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.engine import HyCAConfig, empty_fault_state
+    from repro_torch.core.ftcontext import build_ftcontext
+    from repro_torch.kernels import ft_matmul as FM
+
+    dev = torch.device("cuda")
+    d = bundle.lm.d_model
+    ftc = build_ftcontext(empty_fault_state(1).to(dev), HyCAConfig(rows=ROWS, cols=COLS, mode="protected"),
+                          dispatch="fused")
+    x = torch.randn((4, 1, d), device=dev).to(torch.bfloat16)
+    w = torch.randn((d, d), device=dev).to(torch.bfloat16)
+    ftc.matmul(x, w, site="ffn")
+    torch.cuda.synchronize()
+    calls = 20
+    launches0 = FM.ft_matmul.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        outs = [ftc.matmul(x, w, site="ffn") for _ in range(calls)]
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    got = dict(calls=calls, kernel_launches=FM.ft_matmul.launches - launches0,
+               device_kernels=[[e.key[:60], e.count] for e in ka if _self_device_us(e) > 0],
+               casts=sum(e.count for e in ka if e.key == "aten::_to_copy"), dtype=str(outs[0].dtype))
+    FM.ft_matmul.launches = launches0
+    # the profiler may drop device events of a short window; what it does
+    # report must be the kernel alone
+    check(got["kernel_launches"] == calls and got["casts"] == 0 and outs[0].dtype == torch.bfloat16
+          and all("ft_strip" in k for k, _ in got["device_kernels"]),
+          f"a fused bf16 matmul launched more than the kernel or was cast: {got}")
+    return got
+
+
 def profile_phase(bundle, smi: str, steps: int = 4) -> None:
     """Where one protected decode step's time goes: wall time, device busy
     time (the sum of kernel time on the one stream), and the top host ops
@@ -607,11 +708,13 @@ def profile_phase(bundle, smi: str, steps: int = 4) -> None:
     dev_us = sum(_self_device_us(e) for e in ka)
     by_dev = sorted(ka, key=_self_device_us, reverse=True)[:8]
     by_cpu = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
-    launches = sum(e.count for e in ka if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    launches = sum(e.count for e in ka if e.key in LAUNCH_KEYS)
+    casts = sum(e.count for e in ka if e.key == "aten::_to_copy")
     phase("profile_decode_step", arch=bundle.lm.name, steps=steps, step_ms=1e3 * wall,
           device_busy_ms=dev_us / 1e3 / steps if dev_us else None,
           device_busy_share=(dev_us / 1e6 / steps) / wall if dev_us else None,
-          launches_per_step=launches / steps,
+          launches_per_step=launches / steps, to_copy_per_step=casts / steps,
+          fused_call=fused_call_launches(bundle),
           top_kernels=[[e.key[:60], _self_device_us(e) / 1e3 / steps, e.count // steps] for e in by_dev],
           top_host_ops=[[e.key[:60], e.self_cpu_time_total / 1e3 / steps, e.count // steps] for e in by_cpu],
           card=smi)

@@ -229,7 +229,7 @@ class FTContext:
             return hyca_matmul(x, w, self.state, cfg=self.hyca, plan=plan)
         x2, lead = _as_2d(x)
         and_grid, or_grid = self.mask_grids(plan)
-        out = ft_matmul(x2, w, and_grid, or_grid)
+        out = ft_matmul(x2, w, and_grid, or_grid, out_dtype=_store_dtype(x))
         return out.reshape(*lead, w.shape[-1])
 
     def _fused_einsum(self, x: torch.Tensor, w: torch.Tensor, plan: RepairPlan | None,
@@ -242,8 +242,15 @@ class FTContext:
         # stride (c == 1 at decode), else a copy; the kernel reads strides
         xe = x.transpose(0, 1).reshape(e, b * c, d)
         and_grid, or_grid = self.mask_grids(plan)
-        out = ft_matmul_batched(xe, w, and_grid, or_grid)
+        out = ft_matmul_batched(xe, w, and_grid, or_grid, out_dtype=_store_dtype(x))
         return out.reshape(e, b, c, -1).transpose(0, 1)
+
+
+def _store_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype the fused kernels store for an ``x`` of this dtype: bf16
+    operands get the kernel's own bf16 store (so the caller's ``.to(x.dtype)``
+    launches nothing), every other dtype float32."""
+    return torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
 
 
 def build_ftcontext(

@@ -211,3 +211,117 @@ def test_bf16_layouts_tma_cannot_read_raise_on_the_card():
     assert (TOS.os_array_matmul.launches, TDR.dppu_recompute.launches) == launches
     out = TOS.os_array_matmul(x.float(), w.float(), *grids, bm=64, bn=64, bk=1, rows=2, cols=2)
     assert torch.equal(out, torch.full((64, 128), 100.0, device=dev))
+
+
+def _grids_with_exponent_faults(dev):
+    """4x4 mask grids with bit 30 stuck-at-1 on PE(1, 2) and bit 31 stuck at
+    both values elsewhere: outputs in [1, 2) on PE(1, 2) become inf or NaN."""
+    faults = FAULTS + [(1, 2, 30, 1), (3, 3, 31, 1)]
+    faults.sort(key=lambda f: (f[1], f[0]))
+    fpt = torch.tensor([[r, c] for r, c, _, _ in faults], dtype=torch.int32)
+    bits = torch.tensor([b for *_, b, _ in faults], dtype=torch.int32)
+    vals = torch.tensor([v for *_, v in faults], dtype=torch.int32)
+    meta = TE.fault_meta_grid(TE.FaultState(fpt, bits, vals).to(dev), TE.HyCAConfig(4, 4, mode="unprotected"))
+    return TE.fault_mask_grids(meta)
+
+
+@pytest.mark.cuda
+def test_ft_matmul_plans_match_the_plain_versions_on_the_card():
+    """Every instantiation and split of the redesigned kernels against the
+    plain versions, bitwise on integer-valued operands: split shapes (the
+    cluster reduction), an unsplit expert stack, M = 37 (ten row tiles), a
+    66-byte row pitch (the scalar instantiation), and the K-fast head layout
+    at K = 1000, which ends inside a step; bf16 (tensor cores) and f32 (CUDA
+    cores)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    and_g, or_g = _grids_with_exponent_faults(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    seen = set()
+    for m, k, n, head in ((4, 1024, 1024, False), (4, 2816, 1024, False), (37, 1024, 1024, False),
+                          (5, 70, 33, False), (4, 1000, 3000, True), (3, 1000, 1000, False)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randint(-4, 5, (m, k), generator=g, device=dev).to(dtype)
+            table = torch.randint(-4, 5, (n, k), generator=g, device=dev).to(dtype)
+            w = table.T if head else table.T.contiguous()
+            plan = TFM.plan_of(x, w)
+            seen.add((plan.layout, plan.split > 1))
+            got = TFM.ft_matmul(x, w, and_g, or_g)
+            want = TFM.ft_matmul_ref(x, w, and_g, or_g)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (m, k, n, dtype, plan)
+    for e, m, k, n in ((48, 4, 1536, 512), (4, 37, 512, 256), (3, 5, 70, 33)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randint(-4, 5, (m, e, 1, k), generator=g, device=dev).to(dtype).transpose(0, 1).reshape(e, m, k)
+            w = torch.randint(-4, 5, (e, k, n), generator=g, device=dev).to(dtype)
+            plan = TFM.plan_of(x, w)
+            seen.add((plan.layout, plan.split > 1))
+            got = TFM.ft_matmul_batched(x, w, and_g, or_g)
+            want = TFM.ft_matmul_batched_ref(x, w, and_g, or_g)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (e, m, k, n, dtype, plan)
+    assert {("n_fast", True), ("n_fast", False), ("k_fast", False), ("scalar", False)} <= seen
+
+
+@pytest.mark.cuda
+def test_ft_matmul_gives_the_same_bits_twice_on_the_card():
+    """The sum order is fixed by the plan and the code: the same call twice
+    gives the same bits on random operands, split or not, and the fault-free
+    and faulted calls (the same kernel with other masks) differ exactly by
+    the epilogue."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    and_g, or_g = _grids_with_exponent_faults(dev)
+    keep, zero = torch.full_like(and_g, -1), torch.zeros_like(or_g)
+    g = torch.Generator(device=dev).manual_seed(4)
+    for m, k, n, head in ((4, 1024, 1024, False), (4, 1536, 512, False), (4, 1024, 8192, True)):
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        table = (torch.randn((n, k), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+        w = table.T if head else table.T.contiguous()
+        first = TFM.ft_matmul(x, w, keep, zero)
+        again = TFM.ft_matmul(x, w, keep, zero)
+        assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+        faulted = TFM.ft_matmul(x, w, and_g, or_g)
+        assert torch.equal(faulted.view(torch.int32), TE.apply_mask_grids(first, and_g, or_g).view(torch.int32))
+    x = torch.randn((4, 48, 1, 1536), generator=g, device=dev).to(torch.bfloat16).transpose(0, 1).reshape(48, 4, 1536)
+    w = (torch.randn((48, 1536, 512), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    first = TFM.ft_matmul_batched(x, w, and_g, or_g)
+    assert torch.equal(first.view(torch.int32), TFM.ft_matmul_batched(x, w, and_g, or_g).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_bf16_store_is_the_f32_output_cast_on_the_card():
+    """``out_dtype=torch.bfloat16`` stores the f32 output (epilogue applied)
+    rounded to bf16, bit for bit against ``.to(torch.bfloat16)`` of the f32
+    output on the card, on every instantiation, faulted outputs on bits 30
+    and 31 included.  NaN payloads: the kernel rounds with
+    ``__float2bfloat16_rn`` and PyTorch's cast on the card does the same, so
+    they agree bit for bit, NaNs included.  On the CPU PyTorch's cast writes
+    another NaN pattern (``tests/test_torch_ft_plan.py``), so a NaN is held
+    there by position only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    and_g, or_g = _grids_with_exponent_faults(dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    nans = 0
+    for m, k, n, head in ((4, 1024, 1024, False), (5, 70, 33, False), (4, 1000, 3000, True)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+            table = (torch.randn((n, k), generator=g, device=dev) * 0.05).to(dtype)
+            w = table.T if head else table.T.contiguous()
+            f32 = TFM.ft_matmul(x, w, and_g, or_g)
+            b16 = TFM.ft_matmul(x, w, and_g, or_g, out_dtype=torch.bfloat16)
+            cast = f32.to(torch.bfloat16)
+            assert b16.dtype == torch.bfloat16
+            assert torch.equal(b16.view(torch.int16), cast.view(torch.int16))
+            assert torch.equal(torch.isnan(b16.cpu()), torch.isnan(f32.cpu().to(torch.bfloat16)))
+            nans += int(torch.isnan(f32).sum())
+    x = torch.randn((48, 4, 512), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((48, 512, 256), generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    f32 = TFM.ft_matmul_batched(x, w, and_g, or_g)
+    b16 = TFM.ft_matmul_batched(x, w, and_g, or_g, out_dtype=torch.bfloat16)
+    assert torch.equal(b16.view(torch.int16), f32.to(torch.bfloat16).view(torch.int16))
+    nans += int(torch.isnan(f32).sum())
+    assert nans > 0  # the stuck exponent bit made NaNs, and they were held
