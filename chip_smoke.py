@@ -25,24 +25,41 @@ Phases, each printed on its own line; any failure exits non-zero:
      read as the strided view of the (b, e, c, d) dispatch layout that the
      MoE path hands it;
   5. probe_check against probe_check_ref over every row-block, ± probes,
-     with and without faults;
-  6. each served model at full width (random weights from a seed): off,
-     protected with 3 BIST faults (tokens and first-step logits must equal
-     off), unprotected with a stuck-at-1 on bit 30 of PE(0, 0) (logits must
-     differ); each run must launch every kernel of its path the stated
-     number of times per decode step (qwen: ft_matmul 169; granite:
-     ft_matmul 161, ft_matmul_batched 96) and probe_check twice per
-     protected step; plus the model's smoke config on the card against the
-     same server on the CPU;
+     with and without faults; probe_check_pair (the scan step's one launch
+     for both halves of the pair) against probe_check_pair_ref on the same
+     row-blocks and on random small and full-range int32 operands with
+     stuck-at faults on bits 0, 15, 30 and 31, one launch a call;
+  6. each served model at full width (random weights from a seed), through
+     the decode step captured as one CUDA graph (the main path): off,
+     protected with 3 BIST faults and a fourth that appears at step 2 on a
+     PE row a 4-slot step never reaches (every step's logits and the tokens
+     must equal off; the scan must confirm it), unprotected with a stuck-at-1
+     on bit 30 of PE(0, 0) and another fault at step 2 (logits must differ);
+     each run must capture once and replay every later step, swap its fault
+     state after the capture without a recapture (protected, unprotected),
+     and launch every kernel of its path the stated number of times per
+     decode step (qwen: ft_matmul 169; granite: ft_matmul 161,
+     ft_matmul_batched 96) and probe_check_pair once per protected step,
+     counted by the wrappers, a replay adding what its capture recorded;
+     each mode again through the eager step, which must give every step's
+     logits and every token bit for bit and the same launch counts; plus
+     the model's smoke config on the card against the same server on the
+     CPU;
   7. times, per model: per kernel and shape, the call the serving path
      makes (bf16 operands, the kernel's bf16 store) with its plan, its plain
      version, one PyTorch call of the same bf16 product (device times from
      the profiler, per-call times from CUDA events), the bound (2-byte
-     output) and the achieved TFLOP/s; the decode-step time and tokens/s; a
-     profile of where one protected decode step's time goes, with the casts
-     (aten::_to_copy) a step, and fused bf16 FTContext.matmul calls held to
-     one kernel each and no cast.  qwen1.5-0.5b is served, timed and freed before
-     granite-moe-3b-a800m is built;
+     output) and the achieved TFLOP/s; the probe kernels beside an empty
+     kernel (the launch floor); the decode-step time and tokens/s; a profile
+     of eager and of replayed protected steps: step ms, device busy share,
+     host launch calls and device kernels a step, each csrc kernel's device
+     launches a step (for the replayed steps exactly 169, or 161 + 96, and
+     1 pair probe), the casts (aten::_to_copy) a step, and fused bf16
+     FTContext.matmul calls held to one kernel each and no cast; the
+     protected trace 3 times with the eager and the captured step in turns
+     (median step ms, tokens/s, capture seconds, graph pool bytes).
+     qwen1.5-0.5b is served, timed and freed before granite-moe-3b-a800m is
+     built;
   8. the paper's two-pass pipeline (kernels/ops.py), run on qwen1.5-0.5b's
      full-width weights before they are freed: layer 0's q, up and down
      matrices and the tied head's table.T, at M = 4096 tokens, on the
@@ -67,6 +84,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -339,10 +357,19 @@ def ft_matmul_batched_phase(dev) -> float:
 
 
 def probe_check_phase(dev) -> None:
-    from repro_torch.kernels.dppu_recompute import probe_check, probe_check_ref
+    """``probe_check`` against ``probe_check_ref`` over every row-block and
+    both probe signs, with and without faults; ``probe_check_pair`` (the scan
+    step's one launch) against ``probe_check_pair_ref`` on the same
+    row-blocks, then on random operands (small probes and full-range int32
+    ones whose sums wrap) with stuck-at faults on accumulator bits 0, 15, 30
+    and 31 in both readbacks: bitwise, one launch a call."""
+    from repro_torch.kernels.dppu_recompute import (
+        probe_check, probe_check_pair, probe_check_pair_ref, probe_check_ref,
+    )
     from repro_torch.serving.fault_manager import FaultInjector
 
-    n = 0
+    n = n_pair = 0
+    pair0 = probe_check_pair.launches
     for faulty in (False, True):
         inj = FaultInjector(ROWS, COLS, seed=3)
         if faulty:
@@ -352,15 +379,44 @@ def probe_check_phase(dev) -> None:
             px, pw = inj.probe_operands(sweep)
             for block in (1, 2, 8):
                 for r0 in range(0, ROWS, block):
+                    pxb = px[r0:r0 + block]
+                    ars = {}
                     for sign in (1, -1):
-                        pxb = px[r0:r0 + block]
-                        ar = inj.corrupted_probe(pxb, sign * pw, row0=r0)
-                        t = [torch.from_numpy(a).to(dev) for a in (pxb, sign * pw, ar)]
+                        ars[sign] = inj.corrupted_probe(pxb, sign * pw, row0=r0)
+                        t = [torch.from_numpy(a).to(dev) for a in (pxb, sign * pw, ars[sign])]
                         got = probe_check(*t)
                         ref = probe_check_ref(*t, window=8).to(torch.int32)
                         check(torch.equal(got, ref), f"probe_check r0={r0} block={block} faulty={faulty}")
                         n += 1
-    phase("probe_check", comparisons=n, exact=True)
+                    t = [torch.from_numpy(a).to(dev) for a in (pxb, pw, ars[1], ars[-1])]
+                    got = probe_check_pair(*t)
+                    ref = probe_check_pair_ref(*t, window=8).to(torch.int32)
+                    check(torch.equal(got, ref), f"probe_check_pair r0={r0} block={block} faulty={faulty}")
+                    n_pair += 1
+    g = torch.Generator(device=dev).manual_seed(8)
+    flagged = 0
+    for lo, hi in ((-4, 8), (-2**31, 2**31 - 1)):
+        for block in (1, 8):
+            px = torch.randint(lo, hi, (block, 8), generator=g, device=dev, dtype=torch.int32)
+            pw = torch.randint(lo, hi, (8, COLS), generator=g, device=dev, dtype=torch.int32)
+            ar = (px.long()[:, :, None] * pw.long()).sum(1).to(torch.int32)
+            ar_neg = (px.long()[:, :, None] * (-pw).long()).sum(1).to(torch.int32)
+            for i, bit in enumerate((0, 15, 30, 31)):
+                mask = int(np.uint32(1 << bit).view(np.int32))
+                for t, v in ((ar, i % 2), (ar_neg, 1 - i % 2)):
+                    r, c = i % block, (3 * i + v) % COLS
+                    t[r, c] = t[r, c] | mask if v else t[r, c] & ~mask
+            got = probe_check_pair(px, pw, ar, ar_neg)
+            ref = probe_check_pair_ref(px, pw, ar, ar_neg, window=8).to(torch.int32)
+            check(torch.equal(got, ref), f"probe_check_pair random [{lo}, {hi}) block={block}")
+            flagged += int(got.sum())
+            n_pair += 1
+    check(flagged > 0, "no stuck-at fault on bits 0, 15, 30, 31 was flagged")
+    check(probe_check_pair.launches - pair0 == n_pair, f"probe_check_pair: {probe_check_pair.launches - pair0} "
+          f"launches in {n_pair} calls")
+    probe_check_pair.launches = pair0  # checks, not main-path launches
+    phase("probe_check", comparisons=n, pair_comparisons=n_pair, pair_stuck_bits=[0, 15, 30, 31],
+          pair_full_range_int32=True, launches_per_pair_call=1, exact=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -371,54 +427,72 @@ def trace(vocab: int, n: int = 6, prompt: int = 8, gen: int = 8):
 
 
 def _kernels():
-    from repro_torch.kernels.dppu_recompute import probe_check
+    from repro_torch.kernels.dppu_recompute import probe_check, probe_check_pair
     from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_batched
 
-    return {"ft_matmul": ft_matmul, "ft_matmul_batched": ft_matmul_batched, "probe_check": probe_check}
+    return {"ft_matmul": ft_matmul, "ft_matmul_batched": ft_matmul_batched, "probe_check": probe_check,
+            "probe_check_pair": probe_check_pair}
 
 
-def serve(bundle, mode: str, vocab: int, *, faults=(), record_logits=False):
-    """One server run; returns (tokens by rid, summary, per-step seconds,
-    first step's logits, launch counts of this run)."""
+def serve(bundle, mode: str, vocab: int, *, faults=(), inject=(), capture=None, record_logits=False) -> dict:
+    """One server run over the 6-request trace.  ``faults`` are there at
+    power-on; each ``(step, (r, c, bit, val))`` of ``inject`` appears just
+    before that step.  ``capture``: the server's (None: the captured step).
+    Returns the tokens by rid, the summary, each step's seconds and tokens,
+    every step's logits (with ``record_logits``), the launch counts of this
+    run (set to 0 just before its first step, read just after its last), the
+    step's captures, replays, capture seconds and pool bytes, and the
+    fault-state swaps after the first step."""
     from repro_torch.serving import FaultInjector, FaultTolerantServer
 
     cfg = dataclasses.replace(bundle.cfg, mode=mode)
     inj = FaultInjector(cfg.rows, cfg.cols, seed=cfg.seed + 1)
     for r, c, b, v in faults:
         inj.inject_at(r, c, bit=b, val=v)
-    srv = FaultTolerantServer(cfg, bundle=bundle, injector=inj)
-    first = []
-    step_fn = bundle.step_fn
-
-    def recording(*a, **kw):
-        out = step_fn(*a, **kw)
-        if record_logits and not first:
-            first.append(out[0].clone())
-        return out
-
-    bundle.step_fn = recording
+    srv = FaultTolerantServer(cfg, bundle=bundle, injector=inj, capture=capture)
     for t in trace(vocab):
         srv.submit(t["prompt"], t["max_new_tokens"])
-    times = []
+    times, logits = [], []
+    swaps = None
     kernels = _kernels()
     for k in kernels.values():
         k.launches = 0
-    try:
-        while srv.queue.depth() or srv.scheduler.active:
-            t0 = time.perf_counter()
-            srv.step()  # ends in the step's host sync
-            times.append(time.perf_counter() - t0)
-    finally:
-        del bundle.step_fn
+    while srv.queue.depth() or srv.scheduler.active:
+        for at, (r, c, b, v) in inject:
+            if at == srv.step_idx:
+                inj.inject_at(r, c, bit=b, val=v)
+        if srv.step_idx == 1:
+            swaps = bundle.swaps
+        t0 = time.perf_counter()
+        srv.step()  # ends in the step's host sync
+        times.append(time.perf_counter() - t0)
+        if record_logits:
+            logits.append(srv.decode.logits.clone())
     counts = {name: k.launches for name, k in kernels.items()}
     srv.metrics.finish()
-    return srv.completions_by_rid(), srv.metrics.summary(), times, (first[0] if first else None), counts
+    d = srv.decode
+    return dict(tokens=srv.completions_by_rid(), summary=srv.metrics.summary(), times=times,
+                step_tokens=[r.tokens_generated for r in srv.metrics.steps], logits=logits, counts=counts,
+                captures=d.captures, replays=d.replays, capture_s=d.capture_s, pool_bytes=d.pool_bytes,
+                swaps_after_first_step=bundle.swaps - swaps)
 
 
-def server_phase(dev, arch: str):
-    """Serve ``arch`` at full width off / protected / unprotected and hold
-    the runs to each other and to the launch counts; then the smoke config
-    on the card against the CPU."""
+def _steady(run: dict, skip: int = 2) -> tuple[float, float]:
+    """(median step ms, tokens/s) over the steps after the first ``skip``
+    (the warm-up and capture, the first replay)."""
+    times = run["times"][skip:]
+    return 1e3 * float(np.median(times)), sum(run["step_tokens"][skip:]) / sum(times)
+
+
+def _same_bits(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x.view(torch.int16), y.view(torch.int16)) for x, y in zip(a, b))
+
+
+def server_phase(dev, smi: str, arch: str):
+    """Serve ``arch`` at full width off / protected / unprotected through the
+    captured step, each mode also through the eager step; hold the captured
+    runs to the launch counts, to the eager runs bit for bit and to each
+    other; then the smoke config on the card against the CPU."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.serving import ModelBundle, ServerConfig
 
@@ -436,33 +510,57 @@ def server_phase(dev, arch: str):
     runs = {}
     want = per_step(arch)
     bist = [(0, 1, 30, 1), (2, 3, 31, 0), (3, 6, 20, 1)]  # 3 <= capacity 4
-    for mode, faults in (("off", ()), ("protected", bist), ("unprotected", [(0, 0, 30, 1)])):
-        toks, summ, times, logits0, counts = serve(bundle, mode, lm.vocab, faults=faults, record_logits=True)
-        steps = len(times)
+    # a fault that appears before step 2, so the fault state swaps after the
+    # capture: in protected mode on PE row 5, which a 4-slot step never
+    # reaches (output row i runs on PE row i % 8), so protected still serves
+    # off's bits while the scan finds it; in unprotected mode on PE row 1
+    scenarios = (("off", (), ()), ("protected", bist, ((2, (5, 3, 30, 1)),)),
+                 ("unprotected", [(0, 0, 30, 1)], ((2, (1, 2, 29, 1)),)))
+    for mode, faults, inject in scenarios:
+        run = serve(bundle, mode, lm.vocab, faults=faults, inject=inject, record_logits=True)
+        steps, counts = len(run["times"]), run["counts"]
         for name, n in want.items():
             check(counts[name] == n * steps, f"{arch} {mode}: {name} launched {counts[name]} times in {steps} steps")
-        want_probe = 2 * steps if mode == "protected" else 0
-        check(counts["probe_check"] == want_probe,
-              f"{arch} {mode}: probe_check launched {counts['probe_check']} times in {steps} steps")
-        check(tuple(logits0.shape) == (4, 1, lm.padded_vocab), f"{mode}: logits shape {tuple(logits0.shape)}")
-        runs[mode] = dict(tokens=toks, summary=summ, times=times, logits0=logits0, counts=counts)
-        phase(f"serve_{mode}", arch=arch, steps=steps, tokens=summ["tokens"],
-              confirmed=summ["confirmed_faults_final"], launches=counts,
-              step_ms_median=round(1e3 * float(np.median(times)), 3),
-              tokens_per_s=round(summ["tokens"] / sum(times), 2))
+        want_pair = steps if mode == "protected" else 0
+        check(counts["probe_check_pair"] == want_pair and counts["probe_check"] == 0,
+              f"{arch} {mode}: probe_check_pair launched {counts['probe_check_pair']} and probe_check "
+              f"{counts['probe_check']} times in {steps} steps")
+        check(run["captures"] == 1 and run["replays"] == steps - 1,
+              f"{arch} {mode}: {run['captures']} captures and {run['replays']} replays in {steps} steps")
+        if mode != "off":
+            check(run["swaps_after_first_step"] >= 1, f"{arch} {mode}: no fault-state swap after the capture")
+        shape = tuple(run["logits"][0].shape)
+        check(shape == (4, 1, lm.padded_vocab), f"{mode}: logits shape {shape}")
+        eager = serve(bundle, mode, lm.vocab, faults=faults, inject=inject, capture=False, record_logits=True)
+        check(eager["captures"] == 0 and eager["counts"] == counts,
+              f"{arch} {mode}: the eager step launched {eager['counts']}, the captured {counts}")
+        check(eager["tokens"].keys() == run["tokens"].keys()
+              and all(np.array_equal(eager["tokens"][r], run["tokens"][r]) for r in run["tokens"]),
+              f"{arch} {mode}: the captured step's tokens differ from the eager step's")
+        check(_same_bits(run["logits"], eager["logits"]),
+              f"{arch} {mode}: the captured step's logits differ from the eager step's")
+        runs[mode] = run
+        (ms, tps), (ems, etps) = _steady(run), _steady(eager)
+        phase(f"serve_{mode}", arch=arch, steps=steps, tokens=run["summary"]["tokens"],
+              confirmed=run["summary"]["confirmed_faults_final"], launches=counts, captures=run["captures"],
+              replays=run["replays"], swaps_after_capture=run["swaps_after_first_step"],
+              capture_s=run["capture_s"], graph_pool_bytes=run["pool_bytes"], graph_equals_eager=True,
+              step_ms_median=ms, tokens_per_s=tps, eager_step_ms_median=ems, eager_tokens_per_s=etps, card=smi)
+        del eager
 
     off, prot, unprot = runs["off"], runs["protected"], runs["unprotected"]
-    check(bool(torch.isfinite(off["logits0"][..., :lm.vocab].float()).all()), f"{arch} off: non-finite logits")
+    check(bool(torch.isfinite(off["logits"][0][..., :lm.vocab].float()).all()), f"{arch} off: non-finite logits")
     check(len(off["tokens"]) == 6 and all(len(t) == 8 and (t >= 0).all() and (t < lm.vocab).all()
                                           for t in off["tokens"].values()), f"{arch} off: token streams")
     check(off["tokens"].keys() == prot["tokens"].keys()
           and all(np.array_equal(off["tokens"][r], prot["tokens"][r]) for r in off["tokens"]),
-          f"{arch}: protected (3 faults <= capacity) tokens differ from off")
-    check(torch.equal(off["logits0"].view(torch.int16), prot["logits0"].view(torch.int16)),
-          f"{arch}: protected first-step logits differ from off")
-    check(not torch.equal(off["logits0"].view(torch.int16), unprot["logits0"].view(torch.int16)),
+          f"{arch}: protected (faults <= capacity) tokens differ from off")
+    check(_same_bits(off["logits"], prot["logits"]), f"{arch}: protected logits differ from off")
+    check(prot["summary"]["confirmed_faults_final"] == 4, f"{arch}: the scan did not confirm the fault of step 2")
+    check(not torch.equal(off["logits"][0].view(torch.int16), unprot["logits"][0].view(torch.int16)),
           f"{arch}: unprotected (PE(0,0) bit 30 stuck-at-1) logits equal off")
-    phase("serve_checks", arch=arch, protected_equals_off=True, unprotected_differs=True)
+    phase("serve_checks", arch=arch, protected_equals_off=True, unprotected_differs=True,
+          graph_equals_eager=["off", "protected", "unprotected"], compared="every step's logits, every token")
 
     # the same smoke-size server on the card and on the CPU (plain versions)
     small = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
@@ -470,13 +568,14 @@ def server_phase(dev, arch: str):
     gb = ModelBundle(scfg, lm=small)
     cb = ModelBundle(dataclasses.replace(scfg, device="cpu"), lm=small,
                      params={k: v for k, v in gb.params.items()})
-    gt, _, _, gl, _ = serve(gb, "unprotected", small.vocab, faults=[(1, 2, 20, 1)], record_logits=True)
-    ct, _, _, cl, _ = serve(cb, "unprotected", small.vocab, faults=[(1, 2, 20, 1)], record_logits=True)
-    err = float((gl.cpu() - cl).abs()[..., :small.vocab].max())
+    gr = serve(gb, "unprotected", small.vocab, faults=[(1, 2, 20, 1)], record_logits=True)
+    cr = serve(cb, "unprotected", small.vocab, faults=[(1, 2, 20, 1)], record_logits=True)
+    gt, ct = gr["tokens"], cr["tokens"]
+    err = float((gr["logits"][0].cpu() - cr["logits"][0]).abs()[..., :small.vocab].max())
     check(err <= 1e-4, f"{arch} smoke server on the card vs the CPU: first-step logits differ by {err}")
     check(all(np.array_equal(gt[r], ct[r]) for r in ct) and gt.keys() == ct.keys(),
           f"{arch} smoke server on the card vs the CPU: tokens differ")
-    phase("serve_reference", arch=small.name, max_abs_err_logits=err, tokens_equal=True)
+    phase("serve_reference", arch=small.name, max_abs_err_logits=err, tokens_equal=True, card_captures=gr["captures"])
     return bundle, runs
 
 
@@ -613,35 +712,54 @@ def timing_phase(dev, smi: str, arch: str, runs) -> dict[str, dict]:
         k.launches = launches0[name]
 
     prot = runs["protected"]
-    steady = prot["times"][2:] or prot["times"]
-    phase("time_decode_step", arch=arch, mode="protected", steps=len(prot["times"]),
-          step_ms_median=1e3 * float(np.median(steady)), step_ms_mean=1e3 * float(np.mean(steady)),
-          kernel_ms_per_step={k: v["ms"] for k, v in totals.items()},
-          tokens_per_s=prot["summary"]["tokens"] / sum(prot["times"]), card=smi)
+    ms, tps = _steady(prot)
+    phase("time_decode_step", arch=arch, mode="protected", step="captured", steps=len(prot["times"]),
+          step_ms_median=ms, step_ms_mean=1e3 * float(np.mean(prot["times"][2:])),
+          kernel_ms_per_step={k: v["ms"] for k, v in totals.items()}, tokens_per_s=tps, card=smi)
     return totals
 
 
 def time_probe_check(dev, smi: str) -> dict:
-    """probe_check at the serving scan shape: one grid row (1, 8) @ (8, 8)."""
-    from repro_torch.kernels.dppu_recompute import probe_check, probe_check_ref
+    """The probe kernels at the serving scan shape, one grid row (1, 8) @
+    (8, 8): ``probe_check`` (one half of the pair), ``probe_check_pair`` (the
+    scan step's one launch) and an empty kernel, the card's launch floor,
+    each beside its plain version.  Returns the pair's row of the kernel
+    table with the single probe's and the floor's times."""
+    from repro_torch.kernels.dppu_recompute import (
+        empty_launch, probe_check, probe_check_pair, probe_check_pair_ref, probe_check_ref,
+    )
 
     g = torch.Generator(device=dev).manual_seed(1)
     px = torch.randint(-4, 8, (1, 8), generator=g, device=dev, dtype=torch.int32)
     pw = torch.randint(-4, 8, (8, COLS), generator=g, device=dev, dtype=torch.int32)
     ar = torch.randint(-4, 8, (1, COLS), generator=g, device=dev, dtype=torch.int32)
-    launches0 = probe_check.launches
-    c_pk, d_pk = measure(probe_check, [(px, pw, ar)], 200)
-    c_pp, d_pp = measure(lambda a, b, c: probe_check_ref(a, b, c, window=8), [(px, pw, ar)], 200)
-    probe_check.launches = launches0
-    use_dev = None not in (d_pk, d_pp)
-    t_pk, t_pp = (d_pk, d_pp) if use_dev else (c_pk, c_pp)
+    ar_neg = torch.randint(-4, 8, (1, COLS), generator=g, device=dev, dtype=torch.int32)
+    launches0 = (probe_check.launches, probe_check_pair.launches)
+    timed = {}
+    for name, fn, args in (
+        ("probe_check", probe_check, (px, pw, ar)),
+        ("probe_check_plain", lambda a, b, c: probe_check_ref(a, b, c, window=8), (px, pw, ar)),
+        ("probe_check_pair", probe_check_pair, (px, pw, ar, ar_neg)),
+        ("probe_check_pair_plain", lambda a, b, c, d: probe_check_pair_ref(a, b, c, d, window=8), (px, pw, ar, ar_neg)),
+        ("empty_kernel", lambda: empty_launch(dev), ()),
+    ):
+        timed[name] = measure(fn, [args], 200)
+    probe_check.launches, probe_check_pair.launches = launches0
+    use_dev = all(d is not None for _, d in timed.values())
+    t = {k: (d if use_dev else c) for k, (c, d) in timed.items()}
+    # one probe: px, pw and one readback read, the flags written; the pair reads a second readback
     pb, pby = bound_ms(4 * (8 + 8 * COLS + COLS + COLS), 2 * 8 * COLS, torch.int32)
-    phase("time_probe_check", shape="1x8x8", ms=t_pk, plain_ms=t_pp, bound_ms=pb, bound_by=pby,
-          call_ms=c_pk, plain_call_ms=c_pp, ms_source="profiler" if use_dev else "events", card=smi)
-    return dict(ms=t_pk, plain_ms=t_pp, bound_ms=pb, bound_by=pby)
+    pair_b, pair_by = bound_ms(4 * (8 + 8 * COLS + 2 * COLS + COLS), 2 * 2 * 8 * COLS, torch.int32)
+    phase("time_probe_check", shape="1x8x8", ms=t["probe_check"], plain_ms=t["probe_check_plain"], bound_ms=pb,
+          bound_by=pby, pair_ms=t["probe_check_pair"], pair_plain_ms=t["probe_check_pair_plain"],
+          pair_bound_ms=pair_b, empty_kernel_ms=t["empty_kernel"],
+          call_ms={k: c for k, (c, _) in timed.items()}, ms_source="profiler" if use_dev else "events", card=smi)
+    return dict(ms=t["probe_check_pair"], plain_ms=t["probe_check_pair_plain"], bound_ms=pair_b, bound_by=pair_by,
+                launch_floor_ms=t["empty_kernel"],
+                single_probe=dict(ms=t["probe_check"], plain_ms=t["probe_check_plain"], bound_ms=pb, bound_by=pby))
 
 
-LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch", "cuGraphLaunch")
 
 
 def fused_call_launches(bundle) -> dict:
@@ -681,43 +799,139 @@ def fused_call_launches(bundle) -> dict:
     return got
 
 
-def profile_phase(bundle, smi: str, steps: int = 4) -> None:
-    """Where one protected decode step's time goes: wall time, device busy
-    time (the sum of kernel time on the one stream), and the top host ops
-    and device kernels, from ``torch.profiler`` over a few steady steps."""
-    from torch.profiler import ProfilerActivity, profile
+def _device_events(ka) -> list:
+    """The device activity of a profile's averages: kernels, copies and
+    fills.  A CPU op carries its kernels' device time too, so summing every
+    entry would count each kernel twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in ka if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
+# the csrc kernels a served step launches, by the name the profiler reports
+STEP_KERNEL_NAMES = {"ft_matmul.cu": ("ft_strip_kernel", "ft_strip_mma_kernel", "ft_kfast_kernel"),
+                     "probe_check_pair": ("probe_check_pair_kernel",), "probe_check": ("probe_check_kernel",)}
+
+
+def profile_phase(bundle, smi: str, *, capture: bool, steps: int = 4) -> dict:
+    """Where a protected decode step's time goes, for the captured step
+    (replays) or the eager one: wall time, device busy time (the device
+    events' time, on the one stream), host launch calls and device kernels
+    a step, each csrc kernel's device launches a step, and the top device
+    kernels and host ops, from ``torch.profiler`` over ``steps`` steady
+    steps (its schedule drops one warm-up step, so no event at the window's
+    start is lost).  The captured step's csrc kernels must be exactly the
+    main path's: the matmul kernels of ``per_step`` and one pair probe."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.serving import FaultInjector, FaultTolerantServer
 
     cfg = dataclasses.replace(bundle.cfg, mode="protected")
     inj = FaultInjector(cfg.rows, cfg.cols, seed=cfg.seed + 1)
     inj.inject_at(0, 1, bit=30, val=1)
-    srv = FaultTolerantServer(cfg, bundle=bundle, injector=inj)
+    srv = FaultTolerantServer(cfg, bundle=bundle, injector=inj, capture=None if capture else False)
     for t in trace(bundle.lm.vocab):
         srv.submit(t["prompt"], t["max_new_tokens"])
-    for _ in range(2):
+    for _ in range(2):  # the warm-up and capture, the first replay
         srv.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            srv.step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps
+    wall = 0.0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps, repeat=1)) as prof:
+        for i in range(1 + steps):
+            t0 = time.perf_counter()
+            srv.step()  # ends in the step's host sync
+            if i:
+                wall += time.perf_counter() - t0
+            prof.step()
+    wall /= steps
     ka = prof.key_averages()
-    dev_us = sum(_self_device_us(e) for e in ka)
-    by_dev = sorted(ka, key=_self_device_us, reverse=True)[:8]
-    by_cpu = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
-    launches = sum(e.count for e in ka if e.key in LAUNCH_KEYS)
-    casts = sum(e.count for e in ka if e.key == "aten::_to_copy")
-    phase("profile_decode_step", arch=bundle.lm.name, steps=steps, step_ms=1e3 * wall,
-          device_busy_ms=dev_us / 1e3 / steps if dev_us else None,
-          device_busy_share=(dev_us / 1e6 / steps) / wall if dev_us else None,
-          launches_per_step=launches / steps, to_copy_per_step=casts / steps,
-          fused_call=fused_call_launches(bundle),
-          top_kernels=[[e.key[:60], _self_device_us(e) / 1e3 / steps, e.count // steps] for e in by_dev],
-          top_host_ops=[[e.key[:60], e.self_cpu_time_total / 1e3 / steps, e.count // steps] for e in by_cpu],
-          card=smi)
+    dev = _device_events(ka)
+    dev_us = sum(_self_device_us(e) for e in dev)
+    kernels = [e for e in dev if not e.key.startswith(("Memcpy", "Memset"))]
+    per_kernel = {name: sum(e.count for e in kernels if any(re.search(rf"\b{k}[<(]", e.key) for k in keys)) / steps
+                  for name, keys in STEP_KERNEL_NAMES.items()}
+    want_mm = sum(per_step(bundle.lm.name).values())
+    got = dict(arch=bundle.lm.name, step="captured" if capture else "eager", steps=steps, step_ms=1e3 * wall,
+               device_busy_ms=dev_us / 1e3 / steps, device_busy_share=(dev_us / 1e6 / steps) / wall,
+               host_launch_calls_per_step=sum(e.count for e in ka if e.key in LAUNCH_KEYS) / steps,
+               graph_launches_per_step=sum(e.count for e in ka if "GraphLaunch" in e.key) / steps,
+               device_kernels_per_step=sum(e.count for e in kernels) / steps,
+               device_copies_per_step=sum(e.count for e in dev if e.key.startswith(("Memcpy", "Memset"))) / steps,
+               csrc_kernels_per_step=per_kernel,
+               want_csrc_kernels_per_step={"ft_matmul.cu": want_mm, "probe_check_pair": 1},
+               to_copy_per_step=sum(e.count for e in ka if e.key == "aten::_to_copy") / steps,
+               top_kernels=[[e.key[:60], _self_device_us(e) / 1e3 / steps, e.count / steps]
+                            for e in sorted(kernels, key=_self_device_us, reverse=True)[:8]],
+               top_host_ops=[[e.key[:60], e.self_cpu_time_total / 1e3 / steps, e.count / steps]
+                             for e in sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]],
+               card=smi)
+    if not capture:
+        got["fused_call"] = fused_call_launches(bundle)
+    phase("profile_decode_step", **got)
+    if capture:
+        check(per_kernel["ft_matmul.cu"] == want_mm and per_kernel["probe_check_pair"] == 1
+              and per_kernel["probe_check"] == 0,
+              f"{bundle.lm.name}: replayed steps ran {per_kernel} device kernels a step, want {want_mm} "
+              f"ft_matmul.cu kernels and 1 probe_check_pair")
+    return got
+
+
+def replay_ms(bundle, replays: int = 20) -> float:
+    """Device ms of one replay of the captured protected decode alone: CUDA
+    events around ``replays`` back-to-back replays, no host work between
+    them.  That is the graph's kernels and the gaps between its nodes."""
+    from repro_torch.serving import FaultInjector, FaultTolerantServer
+
+    cfg = dataclasses.replace(bundle.cfg, mode="protected")
+    srv = FaultTolerantServer(cfg, bundle=bundle, injector=FaultInjector(cfg.rows, cfg.cols, seed=cfg.seed + 1))
+    for t in trace(bundle.lm.vocab):
+        srv.submit(t["prompt"], t["max_new_tokens"])
+    for _ in range(2):  # the warm-up and capture, the first replay
+        srv.step()
+    launches0 = {name: k.launches for name, k in _kernels().items()}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        srv.decode()
+    end.record()
+    torch.cuda.synchronize()
+    for name, k in _kernels().items():  # not main-path launches
+        k.launches = launches0[name]
+    return start.elapsed_time(end) / replays
+
+
+def steady_phase(bundle, smi: str, busy_ms: dict, reps: int = 3) -> dict:
+    """The protected 6-request trace ``reps`` times with the eager step and
+    with the captured one, in turns (eager, captured, captured, eager, ...),
+    in one call: each run's median step ms and tokens/s over its steps after
+    the first two, and the capture's seconds and pool bytes.  The device
+    busy share is ``busy_ms`` (each step's device time, from its profile)
+    over the median of these unprofiled medians: under the profiler a
+    replay's wall time grows with the tracing of each of its kernels.  A
+    captured step splits into its graph replay (:func:`replay_ms`: busy
+    time plus the gaps between the graph's nodes) and the host's work
+    around it (the rest of the step)."""
+    bist = [(0, 1, 30, 1), (2, 3, 31, 0), (3, 6, 20, 1)]
+    rows = {"eager": [], "captured": []}
+    for rep in range(reps):
+        order = (False, None) if rep % 2 == 0 else (None, False)
+        for capture in order:
+            run = serve(bundle, "protected", bundle.lm.vocab, faults=bist, capture=capture)
+            ms, tps = _steady(run)
+            rows["eager" if capture is False else "captured"].append(dict(
+                step_ms_median=ms, tokens_per_s=tps, capture_s=run["capture_s"], graph_pool_bytes=run["pool_bytes"]))
+    out = {k: dict(step_ms_median=[r["step_ms_median"] for r in v], tokens_per_s=[r["tokens_per_s"] for r in v])
+           for k, v in rows.items()}
+    out["captured"].update(capture_s=[r["capture_s"] for r in rows["captured"]],
+                           graph_pool_bytes=[r["graph_pool_bytes"] for r in rows["captured"]])
+    for k, v in out.items():
+        v.update(device_busy_ms=busy_ms[k], device_busy_share=busy_ms[k] / float(np.median(v["step_ms_median"])))
+    graph = replay_ms(bundle)
+    out["captured"].update(graph_replay_ms=graph, gaps_in_graph_ms=graph - busy_ms["captured"],
+                           host_ms=float(np.median(out["captured"]["step_ms_median"])) - graph)
+    phase("steady_decode_step", arch=bundle.lm.name, mode="protected", runs=reps, **out, card=smi)
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -1035,14 +1249,16 @@ def main() -> None:
     err = {"ft_matmul": ft_matmul_phase(dev), "ft_matmul_batched": ft_matmul_batched_phase(dev)}
     probe_check_phase(dev)
     timed = {"probe_check": time_probe_check(dev, smi)}
-    launches = {"ft_matmul": 0, "ft_matmul_batched": 0, "probe_check": 0}
+    launches = dict.fromkeys(_kernels(), 0)
     per_path = {}
     for arch in (QWEN, GRANITE):
-        bundle, runs = server_phase(dev, arch)
+        bundle, runs = server_phase(dev, smi, arch)
         for name, n in runs["protected"]["counts"].items():
             launches[name] += n
         per_path[arch] = timing_phase(dev, smi, arch, runs)
-        profile_phase(bundle, smi)
+        busy = {step: profile_phase(bundle, smi, capture=capture)["device_busy_ms"]
+                for step, capture in (("eager", False), ("captured", True))}
+        steady_phase(bundle, smi, busy)
         if arch == QWEN:  # the kernel tier on the served model's weights
             two_pass = two_pass_phase(dev, smi, bundle)
         del bundle, runs
@@ -1064,9 +1280,11 @@ def main() -> None:
     kernels = [
         matmul_row("ft_matmul", "src/repro/kernels/ft_matmul.py:122"),
         matmul_row("ft_matmul_batched", "src/repro/kernels/ft_matmul.py:194"),
+        # the scan step runs the TPU kernel's check of both probe halves in one
+        # launch: the row's numbers are that entry point's, probe_check_pair
         {"name": "probe_check", "route": "cuda", "source": "src/repro_torch/csrc/probe_check.cu",
-         "replaces": "src/repro/kernels/dppu_recompute.py:135",
-         "launches": launches["probe_check"], "max_abs_err": 0.0, **timed["probe_check"],
+         "replaces": "src/repro/kernels/dppu_recompute.py:135", "entry": "probe_check_pair",
+         "launches": launches["probe_check_pair"], "max_abs_err": 0.0, **timed["probe_check"],
          "library_ms": None},
         two_pass["os_array_matmul"],
         two_pass["dppu_recompute"],

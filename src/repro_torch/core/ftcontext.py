@@ -2,8 +2,8 @@
 
 One object carries the fault-tolerance story of a model call:
 
-  * the :class:`~repro_torch.core.engine.FaultState` (swapped per serving
-    step with :meth:`FTContext.with_state`);
+  * the :class:`~repro_torch.core.engine.FaultState` (swapped in place per
+    serving fault-state change with :meth:`FTContext.swap_state`);
   * the :class:`~repro_torch.core.engine.HyCAConfig` (array geometry, DPPU
     capacity, off/protected/unprotected mode);
   * a :class:`ProtectPolicy` naming which call *sites* run on the protected
@@ -114,8 +114,7 @@ class FTContext:
     # one RepairPlan for all sites, or {site: RepairPlan}
     plan: object = None
     # per-plan AND/OR mask pairs of the fused epilogue, computed once per
-    # context, not once per matmul (the serving bundle keeps one context per
-    # fault-state swap)
+    # context, not once per matmul; :meth:`swap_state` rewrites them in place
     _grids: list = dataclasses.field(default_factory=list, init=False, repr=False, compare=False)
 
     @property
@@ -136,8 +135,19 @@ class FTContext:
         return self.policy.n_protected_layers(n_layers)
 
     def with_state(self, state: FaultState | None) -> "FTContext":
-        """Same context, new fault table (the per-step serving update)."""
+        """Same context, new fault table, new mask grids."""
         return dataclasses.replace(self, state=state)
+
+    def swap_state(self, state: FaultState) -> None:
+        """This context, in place, with a new fault table: the per-step
+        serving update.  Every cached AND/OR pair is rebuilt now, eagerly, and
+        copied into the pair's own tensors, so code that holds them (a
+        captured CUDA graph reads fixed addresses) sees the new fault state."""
+        self.state = state
+        for plan, (and_grid, or_grid) in self._grids:
+            new_and, new_or = fault_mask_grids(fault_meta_grid(state, self.hyca, plan))
+            and_grid.copy_(new_and)
+            or_grid.copy_(new_or)
 
     def with_plan(self, plan) -> "FTContext":
         """Same context, new repair plan."""
@@ -212,7 +222,8 @@ class FTContext:
     # ------------------------------------------------------------------ #
     def mask_grids(self, plan: RepairPlan | None) -> tuple[torch.Tensor, torch.Tensor]:
         """The (rows, cols) int32 AND/OR pair for ``plan`` under the current
-        state: ``fault_meta_grid`` lowered by ``fault_mask_grids``."""
+        state: ``fault_meta_grid`` lowered by ``fault_mask_grids``.  Built on
+        the first call for ``plan``; the same tensors afterwards."""
         for p, grids in self._grids:
             if p is plan:
                 return grids

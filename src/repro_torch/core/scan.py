@@ -2,15 +2,15 @@
 
   * One probe step checks a whole row-block of the virtual PE grid —
     ``block_rows`` grid rows × all ``cols`` columns, the paper's *p* DPPU
-    groups probing *p* PEs in parallel.  The AR == BAR + PR comparison runs
-    through :func:`~repro_torch.kernels.dppu_recompute.probe_check` — the CUDA
-    kernel — for CUDA tensors, and through the int32 reference
-    :func:`~repro_torch.kernels.dppu_recompute.probe_check_ref` for CPU
-    tensors.
+    groups probing *p* PEs in parallel.
   * Each PE is checked against a probe matmul AND its negated-weights
     complement: a stuck-at-1 on a high accumulator bit is a no-op on every
     small negative value, and negating the weights flips the sign, so one of
-    the pair exposes it.
+    the pair exposes it.  Both AR == BAR + PR comparisons run in one launch
+    of :func:`~repro_torch.kernels.dppu_recompute.probe_check_pair` for CUDA
+    tensors, and through the int32 reference
+    :func:`~repro_torch.kernels.dppu_recompute.probe_check_pair_ref` for CPU
+    tensors.
   * ``confirm_hits`` probe flags promote a PE from suspect to confirmed;
     detections merge into the FPT through the batched
     :meth:`~repro_torch.core.engine.FaultState.merge` (deduped,
@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.core.detection import detection_cycles
 from repro_torch.core.engine import FaultState, _int_matmul
-from repro_torch.kernels.dppu_recompute import probe_check
+from repro_torch.kernels.dppu_recompute import probe_check_pair
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,10 +121,6 @@ class ScanEngine:
     cfg: ScanConfig
     device: str = "cuda"
 
-    # -- probe comparison ------------------------------------------------- #
-    def _mismatch(self, px: torch.Tensor, pw: torch.Tensor, ar: torch.Tensor) -> torch.Tensor:
-        return probe_check(px, pw, ar).to(torch.bool)
-
     # -- state ------------------------------------------------------------ #
     def init_state(self) -> ScanState:
         c = self.cfg
@@ -150,7 +146,7 @@ class ScanEngine:
         accumulating hits."""
         c = self.cfg
         row0 = state.cursor * c.block_rows
-        flags = self._mismatch(px_b, pw, ar_b) | self._mismatch(px_b, -pw, arn_b)
+        flags = probe_check_pair(px_b, pw, ar_b, arn_b).to(torch.bool)
         hits_b = state.hits[row0 : row0 + c.block_rows]
         countable = flags & (hits_b < c.confirm_hits)
         hits = state.hits.clone()

@@ -5,7 +5,9 @@ kernel with its plain PyTorch twin.
 ``repro/kernels/dppu_recompute.py::probe_check`` (the AR == BAR + PR check of
 paper Section IV-D over one row-block of the virtual PE array).
 ``csrc/probe_check.cu`` accumulates in int32, which is exactly
-:func:`probe_check_ref`.
+:func:`probe_check_ref`.  The scan step runs :func:`probe_check_pair`, the
+same check of both halves of its complementary ±probe pair in one launch:
+the probe is a few hundred bytes, so a launch is all it costs.
 
 ``dppu_recompute`` replaces the Pallas TPU kernel
 ``repro/kernels/dppu_recompute.py::dppu_recompute`` (paper Section IV-C1):
@@ -20,8 +22,9 @@ partner :func:`scatter_overwrite` (the output-buffer overwrite) is plain
 PyTorch.
 
 Each wrapper launches its kernel for CUDA tensors and computes its plain
-twin for CPU tensors.  ``probe_check.launches`` and
-``dppu_recompute.launches`` count kernel launches and nothing else.
+twin for CPU tensors.  ``probe_check.launches``,
+``probe_check_pair.launches`` and ``dppu_recompute.launches`` count kernel
+launches and nothing else.
 """
 from __future__ import annotations
 
@@ -49,14 +52,42 @@ def probe_check_ref(px: torch.Tensor, pw: torch.Tensor, ar: torch.Tensor, *,
     return ar.to(torch.int32) != pr + bar
 
 
+def probe_check_pair_ref(px: torch.Tensor, pw: torch.Tensor, ar: torch.Tensor, ar_neg: torch.Tensor, *,
+                         window: int) -> torch.Tensor:
+    """Plain version of :func:`probe_check_pair`: the OR of the two
+    :func:`probe_check_ref` checks, ``ar`` against ``pw`` and ``ar_neg``
+    against ``-pw``.  Returns a (block, cols) bool mask."""
+    return probe_check_ref(px, pw, ar, window=window) | probe_check_ref(px, -pw, ar_neg, window=window)
+
+
 def _probe_lib() -> ctypes.CDLL:
     lib = _build.load("probe_check")
-    fn = lib.probe_check_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, p]
-        fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, args in (("probe_check_launch", [p, p, p, p, i, i, i, p]),
+                       ("probe_check_pair_launch", [p, p, p, p, p, i, i, i, p]),
+                       ("empty_launch", [p])):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
     return lib
+
+
+def _probe_operands(name: str, px: torch.Tensor, pw: torch.Tensor, *ars: torch.Tensor) -> list[torch.Tensor]:
+    """The checks both probe wrappers make before a launch; returns the
+    operands as contiguous int32."""
+    if px.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda (kernel) or cpu (plain), got {px.device}")
+    b, k = px.shape
+    if pw.shape[0] != k or any(ar.shape != (b, pw.shape[1]) for ar in ars):
+        raise ValueError(
+            f"{name} needs px (B, K), pw (K, C) and (B, C) readbacks; got "
+            f"{tuple(px.shape)}, {tuple(pw.shape)}, {[tuple(ar.shape) for ar in ars]}"
+        )
+    for t in (pw, *ars):
+        if t.device != px.device:
+            raise ValueError(f"{name} operands must share {px.device}, got {t.device}")
+    return [t.to(torch.int32).contiguous() for t in (px, pw, *ars)]
 
 
 def probe_check(px: torch.Tensor, pw: torch.Tensor, ar: torch.Tensor) -> torch.Tensor:
@@ -64,19 +95,8 @@ def probe_check(px: torch.Tensor, pw: torch.Tensor, ar: torch.Tensor) -> torch.T
     mismatch flags (1 = the PE's accumulator disagrees with the recompute)."""
     if px.device.type == "cpu":
         return probe_check_ref(px, pw, ar, window=px.shape[-1]).to(torch.int32)
-    if px.device.type != "cuda":
-        raise ValueError(f"probe_check runs on cuda (kernel) or cpu (plain), got {px.device}")
-    b, k = px.shape
-    if pw.shape[0] != k or ar.shape != (b, pw.shape[1]):
-        raise ValueError(
-            f"probe_check needs px (B, K), pw (K, C), ar (B, C); got "
-            f"{tuple(px.shape)}, {tuple(pw.shape)}, {tuple(ar.shape)}"
-        )
-    for t in (pw, ar):
-        if t.device != px.device:
-            raise ValueError(f"probe_check operands must share {px.device}, got {t.device}")
-    px32, pw32, ar32 = (t.to(torch.int32).contiguous() for t in (px, pw, ar))
-    c = pw32.shape[1]
+    px32, pw32, ar32 = _probe_operands("probe_check", px, pw, ar)
+    (b, k), c = px32.shape, pw32.shape[1]
     flags = torch.empty((b, c), dtype=torch.int32, device=px.device)
     rc = _probe_lib().probe_check_launch(
         px32.data_ptr(), pw32.data_ptr(), ar32.data_ptr(), flags.data_ptr(), b, c, k,
@@ -89,6 +109,36 @@ def probe_check(px: torch.Tensor, pw: torch.Tensor, ar: torch.Tensor) -> torch.T
 
 
 probe_check.launches = 0
+
+
+def probe_check_pair(px: torch.Tensor, pw: torch.Tensor, ar: torch.Tensor, ar_neg: torch.Tensor) -> torch.Tensor:
+    """The scan step's whole probe in one launch: ``ar`` checked against
+    ``px @ pw`` and ``ar_neg`` against ``px @ (-pw)``, the complementary
+    pair.  Returns (block, cols) int32 flags, 1 where either check fails."""
+    if px.device.type == "cpu":
+        return probe_check_pair_ref(px, pw, ar, ar_neg, window=px.shape[-1]).to(torch.int32)
+    px32, pw32, ar32, arn32 = _probe_operands("probe_check_pair", px, pw, ar, ar_neg)
+    (b, k), c = px32.shape, pw32.shape[1]
+    flags = torch.empty((b, c), dtype=torch.int32, device=px.device)
+    rc = _probe_lib().probe_check_pair_launch(
+        px32.data_ptr(), pw32.data_ptr(), ar32.data_ptr(), arn32.data_ptr(), flags.data_ptr(), b, c, k,
+        torch.cuda.current_stream(px.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"probe_check_pair kernel launch failed: CUDA error {rc}")
+    probe_check_pair.launches += 1
+    return flags
+
+
+probe_check_pair.launches = 0
+
+
+def empty_launch(device=None) -> None:
+    """Launch a kernel that does nothing, on ``device``'s current stream: the
+    card's per-launch floor, which the probe kernels are timed against."""
+    rc = _probe_lib().empty_launch(torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
 
 
 # --------------------------------------------------------------------------- #

@@ -42,7 +42,10 @@ per expert: ``out[e, i, j]`` maps to PE(i % rows, j % cols).
 Each wrapper launches its kernel once for CUDA tensors and raises for
 anything it cannot take; for CPU tensors it computes its plain twin
 (:func:`ft_matmul_ref`, :func:`ft_matmul_batched_ref`).  ``ft_matmul.launches``
-and ``ft_matmul_batched.launches`` count kernel launches and nothing else.
+and ``ft_matmul_batched.launches`` count kernel launches and nothing else; a
+call made while a CUDA graph is captured launches nothing, so the captured
+serving step (``serving/server.py::CapturedStep``) takes its calls back off
+the counters and adds them on every replay.
 """
 from __future__ import annotations
 

@@ -67,10 +67,11 @@ def _grouped_scores(qb, k, scale):
 def gqa_decode(x, p, cfg: AttnConfig, cache: Params, ftc=None) -> tuple[torch.Tensor, Params]:
     """One-token decode.  x: (B,1,d); cache: {k, v: (B,Smax,Hk,D), idx: (B,)}.
 
-    The new K/V rows are written into ``cache["k"]`` / ``cache["v"]`` in place
-    (the JAX package returns updated copies; an in-place write saves a copy
-    of the whole cache per layer per step).  The returned cache shares those
-    tensors and carries ``idx + 1``."""
+    The cache is updated in place and returned: the new K/V rows are written
+    into ``cache["k"]`` / ``cache["v"]`` and ``cache["idx"]`` advances by one
+    after its last read (the JAX package returns updated copies and donates
+    the old ones).  Every tensor keeps its storage, so a captured CUDA graph
+    that read this cache updates it on every replay."""
     b = x.shape[0]
     idx = cache["idx"]  # (B,) current length
     q, k_new, v_new = _qkv(x, p, cfg, idx[:, None], ftc)
@@ -88,8 +89,8 @@ def gqa_decode(x, p, cfg: AttnConfig, cache: Params, ftc=None) -> tuple[torch.Te
     wts = torch.softmax(sc, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", wts, v_cache.to(torch.float32))
     out = out.reshape(b, 1, cfg.n_heads * cfg.hd).to(x.dtype)
-    new_cache = {"k": k_cache, "v": v_cache, "idx": idx + 1}
-    return site_matmul(ftc, "attn.out")(out, p["wo"]), new_cache
+    idx.add_(1)
+    return site_matmul(ftc, "attn.out")(out, p["wo"]), cache
 
 
 def gqa_cache_init(cfg: AttnConfig, batch: int, smax: int, dtype=torch.bfloat16, *, device="cuda") -> Params:

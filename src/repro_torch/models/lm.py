@@ -218,7 +218,7 @@ def decode_step(
     *,
     ftc: FTContext | None = None,
 ) -> tuple[torch.Tensor, Params]:
-    """batch: {"token": (B, 1) int}.  Returns (logits (B,1,V), new cache).
+    """batch: {"token": (B, 1) int}.  Returns (logits (B,1,V), cache).
 
     ``params`` are the ``cfg.dtype`` working copies (:func:`cast_params`).
     The JAX counterpart (``repro/models/lm.py:533-553``) casts the f32
@@ -231,33 +231,30 @@ def decode_step(
     through ``ftc``: attention projections, FFN, MoE router and experts.  The
     moe family's first-k dense blocks run with the whole ``ftc``, below the
     split main stack, as in the JAX package.  The KV cache is updated in
-    place (see :func:`~repro_torch.models.attention.gqa_decode`).
+    place, lengths included, and the same dict is returned (see
+    :func:`~repro_torch.models.attention.gqa_decode`): the port's
+    counterpart of the reference step's donated cache.
     """
     _require_ported(cfg)
     x = params["embed"][batch["token"].long()]
     act = _ACTS[cfg.act]
 
     def dense_block(x, lp, c, fc):
-        h, c2 = gqa_decode(rmsnorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, c, fc)
+        h, _ = gqa_decode(rmsnorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, c, fc)
         x = x + h
-        return x + ffn(rmsnorm(x, lp["ln2"]), lp["ffn"], act=act, ftc=fc), c2
+        return x + ffn(rmsnorm(x, lp["ln2"]), lp["ffn"], act=act, ftc=fc)
 
     def moe_block(x, lp, c, fc):
-        h, c2 = gqa_decode(rmsnorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, c, fc)
+        h, _ = gqa_decode(rmsnorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, c, fc)
         x = x + h
         y, _ = moe_forward(rmsnorm(x, lp["ln2"]), lp["moe"], cfg.moe, ftc=fc)
-        return x + y, c2
+        return x + y
 
-    new_cache: Params = {}
     if cfg.first_k_dense:
-        new_cache["attn_dense"] = []
         for lp, c in zip(params["dense_blocks"], cache["attn_dense"]):
-            x, c2 = dense_block(x, lp, c, ftc)
-            new_cache["attn_dense"].append(c2)
+            x = dense_block(x, lp, c, ftc)
     block = moe_block if cfg.family == "moe" else dense_block
-    new_cache["attn"] = []
     for lo, hi, fc in _layer_splits(cfg.n_layers - cfg.first_k_dense, ftc):
         for i in range(lo, hi):
-            x, c2 = block(x, params["blocks"][i], cache["attn"][i], fc)
-            new_cache["attn"].append(c2)
-    return _logits(x, params, cfg, ftc), new_cache
+            x = block(x, params["blocks"][i], cache["attn"][i], fc)
+    return _logits(x, params, cfg, ftc), cache

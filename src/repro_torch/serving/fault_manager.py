@@ -340,12 +340,11 @@ class FaultManager:
         px_b = px[r0 : r0 + block]
         ar_b = self.injector.corrupted_probe(px_b, pw, row0=r0)
         arn_b = self.injector.corrupted_probe(px_b, -pw, row0=r0)
-        dev = self.device
-        self.scan_state, flags, _ = self.engine.probe_presliced(
-            self.scan_state,
-            torch.from_numpy(px_b).to(dev), torch.from_numpy(pw).to(dev),
-            torch.from_numpy(ar_b).to(dev), torch.from_numpy(arn_b).to(dev),
-        )
+        # the four operands in one int32 host buffer, one copy to the device
+        parts = (px_b, pw, ar_b, arn_b)
+        packed = torch.from_numpy(np.concatenate([a.ravel() for a in parts]).astype(np.int32)).to(self.device)
+        operands = [t.view(a.shape) for t, a in zip(packed.split([a.size for a in parts]), parts)]
+        self.scan_state, flags, _ = self.engine.probe_presliced(self.scan_state, *operands)
         self.scans += 1
         if self.scan_state.sweep > sweep:
             self._emit("scan.sweep", sweep=sweep, steps=self.engine.cfg.steps_per_sweep)

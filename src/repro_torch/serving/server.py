@@ -12,12 +12,13 @@ The step loop wires the scheduler and fault manager around one decode:
                                  number of decode slots admission may fill;
       4. admission             — freed slots take queued requests (their KV
                                  cache slots are zeroed in place);
-      5. batched decode        — ONE decode_step over all slots; every weight
-                                 matmul of the protected layer fraction runs
-                                 through the FTContext dispatcher (under
-                                 ``dispatch="fused"``, the CUDA ``ft_matmul``
-                                 kernel), corrupted by whatever faults the
-                                 runtime has not yet confirmed;
+      5. batched decode        — ONE decode_step over all slots and its greedy
+                                 argmax; every weight matmul of the protected
+                                 layer fraction runs through the FTContext
+                                 dispatcher (under ``dispatch="fused"``, the
+                                 CUDA ``ft_matmul`` kernel), corrupted by
+                                 whatever faults the runtime has not yet
+                                 confirmed;
       6. commit                — prefill slots advance a prompt token, decode
                                  slots append the sampled token.
 
@@ -27,7 +28,18 @@ minus confirmed faults, ``unprotected`` the full truth.  With every fault
 confirmed and #faults <= capacity, ``protected`` serves tokens bit-exact with
 ``off`` because both run the same kernels on the same data.
 
-The step syncs the host once, to read the sampled tokens.
+Step 5 is one CUDA graph replay on a card (:class:`CapturedStep`, the
+counterpart of the reference's ``jax.jit(_step, donate_argnums=(1,))``).
+Each server captures its own step, over its own KV cache, once, on its first
+step; a fault-state swap, a submit, a slot reset or the mode never
+recaptures, because the graph reads fixed buffers that these update in
+place.  Under ``dispatch="fused"`` and ``"plain"`` the step is captured;
+``"twopass"`` always runs eagerly, since its engine validates the fault
+table on the host on every call, which a graph cannot hold.  On the CPU the
+same step runs eagerly through the same buffers.
+
+The decode syncs the host once, to read the sampled tokens (a protected
+step's scan reads its flags and hit counters before it).
 
 Not in this slice (they raise ``NotImplementedError``): ``repair`` modes
 other than ``"none"``, device ``counters``, the telemetry ``series`` and the
@@ -36,14 +48,18 @@ other than ``"none"``, device ``counters``, the telemetry ``series`` and the
 from __future__ import annotations
 
 import dataclasses
+import gc
+import time
+import weakref
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.engine import FaultState, HyCAConfig, empty_fault_state, identity_plan
-from repro_torch.core.ftcontext import FTContext, ProtectPolicy, build_ftcontext
+from repro_torch.core.ftcontext import ProtectPolicy, build_ftcontext
 from repro_torch.core.redundancy import DPPUConfig
+from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_batched
 from repro_torch.models.lm import (
     LMConfig, Params, cast_params, decode_step, init_cache, init_params, tree_map,
 )
@@ -99,6 +115,104 @@ def resolve_device(device: str) -> torch.device:
     return dev
 
 
+# the dispatches whose step a CUDA graph can hold, and the kernel wrappers a
+# decode step launches
+GRAPH_DISPATCHES = ("plain", "fused")
+STEP_KERNELS = (ft_matmul, ft_matmul_batched)
+
+
+def graph_holds(device: torch.device, dispatch: str) -> bool:
+    """Can a CUDA graph hold the decode step?  On a card, under the
+    ``plain`` and ``fused`` dispatches.  Never under ``twopass``: its engine
+    validates the fault table on the host on every call (a device-to-host
+    read), which a capture cannot contain.  A fixed rule of the dispatch."""
+    return device.type == "cuda" and dispatch in GRAPH_DISPATCHES
+
+
+class CapturedStep:
+    """One server's decode step, ``decode_step`` and the greedy argmax over
+    one KV cache, through static buffers: ``tokens`` (n_slots, 1) in,
+    ``logits`` (n_slots, 1, padded vocab) and ``sampled`` (n_slots,) int32
+    out.
+
+    With ``capture`` (by default wherever :func:`graph_holds`), the first
+    call runs the step eagerly on a side stream, which is the warm-up, then
+    captures it as one CUDA graph; every later call replays the graph.  The graph reads fixed addresses: the
+    bundle's params, this cache (advanced in place), the static buffers and
+    the bundle's mask grids (rewritten in place by a fault-state swap).  A
+    failed capture raises.  Without ``capture`` the same call runs the step
+    eagerly through the same buffers; that is how the CPU runs it, and the
+    comparison a captured step is held to.
+
+    A replay calls no kernel wrapper, so it adds the launches each wrapper of
+    :data:`STEP_KERNELS` counted while the step was captured to its
+    ``launches``; the capture itself launches nothing and counts nothing.
+    The counters keep counting the kernels launched on the card."""
+
+    def __init__(self, bundle: "ModelBundle", cache: Params, *, capture: bool | None = None):
+        dev, dispatch = bundle.device, bundle.cfg.dispatch
+        if capture is None:
+            capture = graph_holds(dev, dispatch)
+        elif capture and not graph_holds(dev, dispatch):
+            raise ValueError(f"a CUDA graph holds the step on a card under dispatch {GRAPH_DISPATCHES}, "
+                             f"not on {dev} under {dispatch!r}")
+        self.bundle, self.cache, self.capture = bundle, cache, capture
+        n = bundle.cfg.n_slots
+        self.tokens = torch.zeros((n, 1), dtype=torch.int32, device=dev)
+        self.logits = torch.zeros((n, 1, bundle.lm.padded_vocab), dtype=bundle.lm.dtype, device=dev)
+        self.sampled = torch.zeros((n,), dtype=torch.int32, device=dev)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.captures = self.replays = 0
+        self.capture_s: float | None = None     # wall time of the capture
+        self.pool_bytes: int | None = None      # device memory the capture reserved
+        self.deltas: dict = {}                  # wrapper -> launches a replay makes
+
+    def _body(self) -> None:
+        b = self.bundle
+        logits, _ = decode_step(b.work, b.lm, self.cache, {"token": self.tokens}, ftc=b.ftc)
+        self.logits.copy_(logits)
+        self.sampled.copy_(logits[:, -1, :].argmax(dim=-1))
+
+    def __call__(self) -> None:
+        if not self.capture:
+            self._body()
+        elif self.graph is None:
+            self._warm_up_and_capture()
+        else:
+            self.graph.replay()
+            self.replays += 1
+            for kernel, n in self.deltas.items():
+                kernel.launches += n
+
+    def _warm_up_and_capture(self) -> None:
+        dev = self.bundle.device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._body()  # this step's own work, run eagerly: the warm-up
+        main.wait_stream(side)
+        # torch.cuda.graph collects and empties the cache before it captures:
+        # do it first, so the reserved bytes after the capture are its pool
+        torch.cuda.synchronize(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        counted = {k: k.launches for k in STEP_KERNELS}
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._body()
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.deltas = {k: k.launches - counted[k] for k in STEP_KERNELS}
+        for k in STEP_KERNELS:
+            k.launches = counted[k]
+        self.graph = graph
+        self.captures += 1
+
+
 # --------------------------------------------------------------------------- #
 # model pieces (shareable across servers)
 # --------------------------------------------------------------------------- #
@@ -108,7 +222,12 @@ class ModelBundle:
     ``params``: optional f32 master params in this package's layout (e.g.
     :func:`~repro_torch.models.lm.params_from_numpy` of the JAX params);
     default random from a ``torch.Generator`` seeded with ``cfg.seed``.
-    The ``lm.dtype`` working copies the step reads are made here, once."""
+    The ``lm.dtype`` working copies the step reads are made here, once.
+
+    The bundle holds one FTContext, whose fault table is swapped in place,
+    and one :class:`CapturedStep` per KV cache: each server owns its cache
+    and its step, so servers of every mode share one bundle, and each
+    captures once."""
 
     def __init__(self, cfg: ServerConfig, lm: LMConfig | None = None, params: Params | None = None):
         if cfg.counters or cfg.series or cfg.abft:
@@ -129,26 +248,51 @@ class ModelBundle:
         # every step carries a plan (identity until the repair slice lands)
         self.identity_plan = identity_plan(cfg.rows, cfg.cols, device=self.device)
         # one FTContext per bundle; the per-step fault table is swapped in
-        # with with_state
+        # place with swap_state, and the fused dispatch's AND/OR pair, built
+        # here, keeps its tensors for the bundle's life
         self.ftc = build_ftcontext(
             self.empty_state, self.hyca,
             policy=ProtectPolicy(layer_fraction=cfg.protect_fraction),
             dispatch=cfg.dispatch,
             plan=self.identity_plan,
         )
-        # (fault table, plan, context) of the last step: the server hands in
-        # the same FaultState object until the injector or the confirmed set
-        # changes, so the context, and the AND/OR grids it caches, are built
-        # once per fault-state swap rather than once per step
-        self._step_ftc: tuple[FaultState, object, FTContext] | None = None
+        if cfg.dispatch == "fused":
+            self.ftc.mask_grids(self.identity_plan)
+        # a step swaps its fault table into the context when it is not the
+        # one there; the server hands in the same FaultState object until the
+        # injector or the confirmed set changes, so the grids are rebuilt once
+        # per fault-state swap rather than once per step
+        self.swaps = 0
+        self._steps = weakref.WeakValueDictionary()  # id(cache) -> CapturedStep
+
+    def captured_step(self, cache: Params, *, capture: bool | None = None) -> CapturedStep:
+        """The decode step over ``cache`` (:class:`CapturedStep`), made on
+        the first call for that cache.  The caller keeps it alive (a server
+        holds its own); the bundle keeps only a weak reference."""
+        step = self._steps.get(id(cache))
+        if step is None or step.cache is not cache:
+            step = CapturedStep(self, cache, capture=capture)
+            self._steps[id(cache)] = step
+        return step
 
     def step_fn(self, params: Params, cache: Params, tok: torch.Tensor,
                 fstate: FaultState, plan) -> tuple[torch.Tensor, Params]:
-        last = self._step_ftc
-        if last is None or last[0] is not fstate or last[1] is not plan:
-            last = (fstate, plan, self.ftc.with_state(fstate).with_plan(plan))
-            self._step_ftc = last
-        return decode_step(params, self.lm, cache, {"token": tok}, ftc=last[2])
+        """One decode step of ``cache``'s server: swap ``fstate`` into the
+        context if it changed, copy ``tok`` (n_slots, 1) into the step's
+        token buffer and run the step.  Returns (its logits buffer, ``cache``
+        updated in place); its sampled tokens are in
+        ``captured_step(cache).sampled``."""
+        if params is not self.work:
+            raise ValueError("the step reads the bundle's working params (ModelBundle.work)")
+        if plan is not self.ftc.plan:
+            raise NotImplementedError("a repair plan other than the bundle's comes with the repair slice")
+        if fstate is not self.ftc.state:
+            self.ftc.swap_state(fstate)
+            self.swaps += 1
+        step = self.captured_step(cache)
+        step.tokens.copy_(tok)
+        step()
+        return step.logits, cache
 
     def reset_fn(self, cache: Params, slot: int) -> Params:
         """Zero one slot of every layer's KV cache, every part of it (the
@@ -167,8 +311,13 @@ class ModelBundle:
 # the server
 # --------------------------------------------------------------------------- #
 class FaultTolerantServer:
+    """``capture`` chooses how the decode step runs (:class:`CapturedStep`):
+    None captures it as a CUDA graph wherever that can hold it (a card,
+    dispatch ``fused`` or ``plain``) and runs it eagerly elsewhere; False
+    runs it eagerly, the comparison the graph is held to."""
+
     def __init__(self, cfg: ServerConfig, *, bundle: ModelBundle | None = None,
-                 injector: FaultInjector | None = None):
+                 injector: FaultInjector | None = None, capture: bool | None = None):
         if cfg.mode not in ("off", "protected", "unprotected"):
             raise ValueError(f"unknown mode {cfg.mode!r}")
         if cfg.repair not in ("none", "remap", "retrain"):
@@ -180,6 +329,7 @@ class FaultTolerantServer:
         self.lm = self.bundle.lm
         self.device = self.bundle.device
         self.cache = self.bundle.fresh_cache()
+        self.decode = self.bundle.captured_step(self.cache, capture=capture)
         self.params = self.bundle.work
         self.plan = self.bundle.identity_plan
         # one event log per server, shared with the injector and the manager;
@@ -296,13 +446,13 @@ class FaultTolerantServer:
         for slot in admitted:
             self.cache = self.bundle.reset_fn(self.cache, slot.index)
 
-        # 5. one batched decode over all slots
-        feed = torch.from_numpy(self.scheduler.plan_feed()).to(self.device)
-        logits, self.cache = self.bundle.step_fn(
+        # 5. one batched decode over all slots, and its greedy argmax
+        feed = torch.from_numpy(self.scheduler.plan_feed())
+        _, self.cache = self.bundle.step_fn(
             self.params, self.cache, feed, self._current_fstate(), self.plan,
         )
         # the step's one host sync
-        sampled = logits[:, -1, :].argmax(dim=-1).to(torch.int32).cpu().numpy()
+        sampled = self.decode.sampled.cpu().numpy()
 
         # 6. advance requests
         n_active = self.scheduler.active

@@ -4,6 +4,7 @@ Imports torch and the port only (the card's machine has no JAX), so it runs
 there with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Without a card it skips.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -325,3 +326,85 @@ def test_bf16_store_is_the_f32_output_cast_on_the_card():
     assert torch.equal(b16.view(torch.int16), f32.to(torch.bfloat16).view(torch.int16))
     nans += int(torch.isnan(f32).sum())
     assert nans > 0  # the stuck exponent bit made NaNs, and they were held
+
+
+@pytest.mark.cuda
+def test_probe_check_pair_matches_plain_version_on_the_card():
+    """The pair kernel against its plain version (the OR of two
+    ``probe_check_ref`` calls, the second on ``-pw``), bitwise, on small
+    probe operands and on full-range int32 ones whose products and sums wrap
+    mod 2^32, with stuck-at faults on every accumulator bit; one launch a
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    launches = TDR.probe_check_pair.launches
+    for lo, hi in ((-4, 8), (-2**31, 2**31 - 1)):
+        px = torch.randint(lo, hi, (3, 8), generator=g, device=dev, dtype=torch.int32)
+        pw = torch.randint(lo, hi, (8, 16), generator=g, device=dev, dtype=torch.int32)
+        ar, ar_neg = TE._int_matmul(px, pw), TE._int_matmul(px, -pw)
+        for bit in range(32):
+            for t in (ar, ar_neg):
+                i, j = bit % 3, (5 * bit) % 16
+                t[i, j] ^= int(np.uint32(1 << bit).view(np.int32))
+        got = TDR.probe_check_pair(px, pw, ar, ar_neg)
+        want = TDR.probe_check_pair_ref(px, pw, ar, ar_neg, window=8).to(torch.int32)
+        assert torch.equal(got, want) and int(got.sum()) > 0
+    assert TDR.probe_check_pair.launches == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,dispatch", [("qwen1.5-0.5b", "fused"), ("granite-moe-3b-a800m", "fused"),
+                                           ("qwen1.5-0.5b", "plain")])
+def test_captured_step_equals_eager_across_a_swap_on_the_card(arch, dispatch):
+    """The smoke config served with the step captured as a CUDA graph and
+    with the eager step, in each mode, with a fault injected mid-run (a
+    fault-state swap after the capture): every step's logits and every token
+    bitwise equal, one capture a server, and the launch counters after the
+    warm-up step and N replays equal (N + 1) times the launches the capture
+    recorded, which is what the eager run counts a step (none under
+    ``plain``, which captures plain matmuls)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving import FaultInjector, FaultTolerantServer, ModelBundle, ServerConfig
+
+    cfg = ServerConfig(arch=arch, device="cuda", dispatch=dispatch, n_slots=4, smax=32, rows=4, cols=4,
+                       dppu_size=4, seed=0)
+    bundle = ModelBundle(cfg, lm=get_smoke_config(arch))
+    gen = torch.Generator().manual_seed(3)
+    trace = [torch.randint(0, 512, (4,), generator=gen).numpy() for _ in range(6)]
+    kernels = (TFM.ft_matmul, TFM.ft_matmul_batched)
+    for mode in ("off", "protected", "unprotected"):
+        runs = {}
+        for capture in (True, False):
+            inj = FaultInjector(4, 4, seed=1)
+            inj.inject_at(0, 1, bit=30, val=1)
+            srv = FaultTolerantServer(dataclasses.replace(cfg, mode=mode), bundle=bundle, injector=inj,
+                                      capture=capture)
+            for p in trace:
+                srv.submit(p, 6)
+            logits, swaps = [], []
+            for k in kernels:
+                k.launches = 0
+            while srv.queue.depth() or srv.scheduler.active:
+                if srv.step_idx == 3:
+                    inj.inject_at(1, 2, bit=29, val=1)
+                swaps.append(bundle.swaps)
+                srv.step()
+                logits.append(srv.decode.logits.clone())
+            runs[capture] = (srv, logits, swaps, [k.launches for k in kernels])
+        (gs, gl, gsw, gn), (es, el, _, en) = runs[True], runs[False]
+        steps = len(gl)
+        assert all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(gl, el))
+        assert gs.completions_by_rid().keys() == es.completions_by_rid().keys()
+        assert all(np.array_equal(gs.completions_by_rid()[r], es.completions_by_rid()[r])
+                   for r in es.completions_by_rid())
+        assert gs.decode.captures == 1 and gs.decode.replays == steps - 1 and es.decode.captures == 0
+        if mode != "off":
+            assert gsw[-1] > gsw[1]  # a fault-state swap after the capture
+        per_step = [gs.decode.deltas[k] for k in kernels]
+        assert gn == en == [steps * n for n in per_step] and (per_step[0] > 0) == (dispatch == "fused")

@@ -164,3 +164,33 @@ def test_wrappers_raise_off_cpu_and_cuda():
         TFM.ft_matmul(torch.ones((2, 3), device="meta"), torch.ones((3, 4), device="meta"), and_g, or_g)
     with pytest.raises(ValueError, match="cuda"):
         TDR.probe_check(*(torch.ones(s, dtype=torch.int32, device="meta") for s in ((1, 8), (8, 4), (1, 4))))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_probe_check_pair_matches_two_jax_probes_exactly(seed):
+    """``probe_check_pair`` (the scan step's one launch) equals the OR of two
+    ``probe_check_ref`` calls and of two JAX ``probe_check`` calls in
+    interpret mode, the second half against ``-pw``, with stuck-at faults on
+    every accumulator bit 0-31 in both readbacks; it flags exactly the PEs
+    whose readback a fault changed."""
+    rng = np.random.default_rng(seed)
+    block, k, cols = 4, 8, 16
+    px = rng.integers(-4, 8, size=(block, k)).astype(np.int32)
+    pw = rng.integers(-4, 8, size=(k, cols)).astype(np.int32)
+    ar, ar_neg = px @ pw, px @ -pw
+    for bit in range(32):
+        mask = np.uint32(1 << bit).view(np.int32)
+        for readback in (ar, ar_neg):
+            i, j = rng.integers(block), rng.integers(cols)
+            readback[i, j] = readback[i, j] | mask if rng.integers(2) else readback[i, j] & ~mask
+    changed = (ar != px @ pw) | (ar_neg != px @ -pw)
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (px, pw, ar, ar_neg)]
+    got = TDR.probe_check_pair(*t)
+    ref = TDR.probe_check_ref(t[0], t[1], t[2], window=8) | TDR.probe_check_ref(t[0], -t[1], t[3], window=8)
+    jax_flags = [np.asarray(JDR.probe_check(jnp.asarray(px), jnp.asarray(w), jnp.asarray(a), bk=8, interpret=True))
+                 for w, a in ((pw, ar), (-pw, ar_neg))]
+    assert got.dtype == torch.int32
+    assert torch.equal(TDR.probe_check_pair_ref(*t, window=8), ref)
+    assert np.array_equal(got.numpy(), ref.numpy().astype(np.int32))
+    assert np.array_equal(got.numpy(), (jax_flags[0] | jax_flags[1]).astype(np.int32))
+    assert np.array_equal(got.numpy().astype(bool), changed) and changed.any()

@@ -170,3 +170,118 @@ def test_fused_grids_built_once_per_fault_state_swap(bundles, monkeypatch):
     steps = len(srv.metrics.steps)
     assert 2 <= len(swaps) < steps
     assert len(builds) == len(swaps)
+
+
+def _cache_tensors(cache):
+    return [t for part in cache.values() for layer in part for t in layer.values()]
+
+
+@pytest.mark.parametrize("name", list(SCENARIOS))
+def test_static_buffer_step_matches_jax(bundles, name):
+    """Every step runs through the server's own step object and its static
+    buffers: the token, logits and sampled buffers, every KV-cache tensor
+    (lengths included) and the fused mask grids keep their storage for the
+    whole run, which is what a captured CUDA graph reads.  On the CPU the
+    step runs eagerly and never captures.  The tokens equal the JAX
+    server's on the same trace."""
+    jb, tb = bundles
+    mode, kw, faults = SCENARIOS[name]
+    jsrv, _ = _run(JServer, JConfig(mode=mode, **BASE, **kw), jb, JInjector(4, 4, seed=BASE["seed"] + 1), faults)
+
+    cfg = ServerConfig(mode=mode, device="cpu", **BASE, **kw)
+    injector = FaultInjector(cfg.rows, cfg.cols, seed=cfg.seed + 1)
+    for r, c, b, v in faults:
+        injector.inject_at(r, c, bit=b, val=v)
+    srv = FaultTolerantServer(cfg, bundle=tb, injector=injector)
+    step, cache = srv.decode, srv.cache
+    assert step is tb.captured_step(cache) and not step.capture
+
+    def storage():
+        return ([t.data_ptr() for t in _cache_tensors(srv.cache)],
+                [t.data_ptr() for t in (step.tokens, step.logits, step.sampled, *tb.ftc.mask_grids(tb.identity_plan))])
+
+    before = storage()
+    seen = []
+    step_fn = tb.step_fn
+
+    def recording(*a, **kw):
+        logits, out_cache = step_fn(*a, **kw)
+        seen.append((logits is step.logits, out_cache is cache, storage()))
+        return logits, out_cache
+
+    tb.step_fn = recording
+    try:
+        srv.run(_trace(), max_steps=64)
+    finally:
+        del tb.step_fn
+    assert seen and all(a and b and ptrs == before for a, b, ptrs in seen)
+    assert step.graph is None and step.captures == step.replays == 0
+    jt, tt = jsrv.completions_by_rid(), srv.completions_by_rid()
+    assert jt.keys() == tt.keys() and len(tt) == 6
+    for rid in jt:
+        assert np.array_equal(jt[rid], tt[rid]), rid
+
+
+def test_fault_state_swap_rewrites_grid_buffers_in_place(bundles):
+    """A fault that appears mid-run swaps the server's fault table into the
+    bundle's context: the fused AND/OR pair keeps its tensors and now holds
+    exactly the grids built afresh from the new fault table."""
+    from repro_torch.core.engine import fault_mask_grids, fault_meta_grid
+
+    _, tb = bundles
+    and_g, or_g = tb.ftc.mask_grids(tb.identity_plan)
+    ptrs = (and_g.data_ptr(), or_g.data_ptr())
+    clean = fault_mask_grids(fault_meta_grid(tb.empty_state, tb.hyca, tb.identity_plan))
+    srv = FaultTolerantServer(ServerConfig(mode="unprotected", device="cpu", **BASE), bundle=tb,
+                              injector=FaultInjector(4, 4, seed=BASE["seed"] + 1))
+    swaps = []
+
+    def inject(s):
+        if s.step_idx == 3:
+            s.injector.inject_at(1, 2, bit=30, val=1)
+        swaps.append(tb.swaps)
+
+    srv.run(_trace(), max_steps=64, on_step=inject)
+    assert swaps[4] == swaps[3] + 1 == swaps[2] + 1  # the injection swapped, the steps around it did not
+    want = fault_mask_grids(fault_meta_grid(srv._current_fstate(), tb.hyca, tb.identity_plan))
+    got = tb.ftc.mask_grids(tb.identity_plan)
+    assert got[0] is and_g and got[1] is or_g and (and_g.data_ptr(), or_g.data_ptr()) == ptrs
+    assert torch.equal(and_g, want[0]) and torch.equal(or_g, want[1])
+    assert not (torch.equal(and_g, clean[0]) and torch.equal(or_g, clean[1]))
+
+
+def test_twopass_step_stays_eager_by_rule():
+    """A CUDA graph holds the step under dispatch ``fused`` and ``plain`` on a
+    card, never under ``twopass`` (its engine reads the fault table on the
+    host on every call) and never on the CPU; asking for a capture there
+    raises, and a twopass server serves eagerly."""
+    from repro_torch.serving.server import graph_holds
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert graph_holds(cuda, "fused") and graph_holds(cuda, "plain")
+    assert not graph_holds(cuda, "twopass") and not graph_holds(cpu, "fused")
+    cfg = ServerConfig(**{**BASE, "dispatch": "twopass", "n_slots": 2, "smax": 8}, device="cpu")
+    bundle = ModelBundle(cfg, lm=dataclasses.replace(get_smoke_config(ARCH), dtype=torch.float32))
+    with pytest.raises(ValueError, match="CUDA graph"):
+        bundle.captured_step(bundle.fresh_cache(), capture=True)
+    srv = FaultTolerantServer(cfg, bundle=bundle)
+    srv.submit([1, 2, 3], max_new_tokens=2)
+    srv.step()
+    assert not srv.decode.capture and srv.decode.graph is None and srv.decode.captures == 0
+
+
+def test_decode_step_advances_cache_lengths_in_place():
+    """``decode_step`` returns the cache it was given, and every layer's
+    ``idx`` keeps its storage while it advances one a step."""
+    from repro_torch.models import lm as TL
+
+    cfg = dataclasses.replace(get_smoke_config(ARCH), dtype=torch.float32)
+    params = TL.init_params(torch.Generator().manual_seed(0), cfg)
+    cache = TL.init_cache(cfg, 2, 8, device="cpu")
+    idx = [layer["idx"] for layer in cache["attn"]]
+    ptrs = [t.data_ptr() for t in idx]
+    for n in range(1, 4):
+        _, out = TL.decode_step(params, cfg, cache, {"token": torch.full((2, 1), n)})
+        assert out is cache
+        assert all(layer["idx"] is t and t.data_ptr() == p and t.tolist() == [n, n]
+                   for layer, t, p in zip(cache["attn"], idx, ptrs))
