@@ -42,9 +42,21 @@ Phases, each printed on its own line; any failure exits non-zero:
      ft_matmul_batched 96) and probe_check_pair once per protected step,
      counted by the wrappers, a replay adding what its capture recorded;
      each mode again through the eager step, which must give every step's
-     logits and every token bit for bit and the same launch counts; plus
-     the model's smoke config on the card against the same server on the
-     CPU;
+     logits and every token bit for bit and the same launch counts;
+     serve_remap: repair="remap", six faults (REMAP_FAULTS) that appear at
+     step 2 and a BIST confirms there, two past the DPPU: one repair.plan
+     event after the capture, 4 effective slots and quality 0.75 at every
+     step, the plan swapped into the captured step (grids rewritten at the
+     same addresses), captured equal to eager bit for bit, the launches per
+     step of the main path, one ft_matmul call on the live grids whose
+     pruned outputs are exactly +0, the ms and device ops of a plan swap;
+     and repair="none" on the same faults, which retires two columns;
+     serve_counters: the protected run with counters and series on, bit
+     for bit the counters-off run, protected_calls equal to the launches
+     (a batched launch is one array execution per expert), one series row
+     a step, the step ms on and off in turns and the device kernels, copies
+     and syncs a replayed step adds; plus the model's smoke config on the
+     card against the same server on the CPU, unprotected and remap;
   7. times, per model: per kernel and shape, the call the serving path
      makes (bf16 operands, the kernel's bf16 store) with its plan, its plain
      version, one PyTorch call of the same bf16 product (device times from
@@ -434,25 +446,29 @@ def _kernels():
             "probe_check_pair": probe_check_pair}
 
 
-def serve(bundle, mode: str, vocab: int, *, faults=(), inject=(), capture=None, record_logits=False) -> dict:
+def serve(bundle, mode: str, vocab: int, *, faults=(), inject=(), bist_at=None, capture=None,
+          record_logits=False, **cfg_kw) -> dict:
     """One server run over the 6-request trace.  ``faults`` are there at
     power-on; each ``(step, (r, c, bit, val))`` of ``inject`` appears just
-    before that step.  ``capture``: the server's (None: the captured step).
+    before that step, and at step ``bist_at`` a BIST confirms every fault
+    there.  ``capture``: the server's (None: the captured step); ``cfg_kw``
+    the ServerConfig fields beside the bundle's (repair, counters, series).
     Returns the tokens by rid, the summary, each step's seconds and tokens,
     every step's logits (with ``record_logits``), the launch counts of this
     run (set to 0 just before its first step, read just after its last), the
-    step's captures, replays, capture seconds and pool bytes, and the
-    fault-state swaps after the first step."""
+    step's captures, replays, capture seconds and pool bytes, the
+    fault-state swaps after the first step, the addresses of the held mask
+    grids at every step, and the server."""
     from repro_torch.serving import FaultInjector, FaultTolerantServer
 
-    cfg = dataclasses.replace(bundle.cfg, mode=mode)
+    cfg = dataclasses.replace(bundle.cfg, mode=mode, **cfg_kw)
     inj = FaultInjector(cfg.rows, cfg.cols, seed=cfg.seed + 1)
     for r, c, b, v in faults:
         inj.inject_at(r, c, bit=b, val=v)
     srv = FaultTolerantServer(cfg, bundle=bundle, injector=inj, capture=capture)
     for t in trace(vocab):
         srv.submit(t["prompt"], t["max_new_tokens"])
-    times, logits = [], []
+    times, logits, grid_ptrs = [], [], []
     swaps = None
     kernels = _kernels()
     for k in kernels.values():
@@ -461,6 +477,8 @@ def serve(bundle, mode: str, vocab: int, *, faults=(), inject=(), capture=None, 
         for at, (r, c, b, v) in inject:
             if at == srv.step_idx:
                 inj.inject_at(r, c, bit=b, val=v)
+        if srv.step_idx == bist_at:
+            srv.manager.bist()
         if srv.step_idx == 1:
             swaps = bundle.swaps
         t0 = time.perf_counter()
@@ -468,13 +486,15 @@ def serve(bundle, mode: str, vocab: int, *, faults=(), inject=(), capture=None, 
         times.append(time.perf_counter() - t0)
         if record_logits:
             logits.append(srv.decode.logits.clone())
+        grid_ptrs.append([g.data_ptr() for _, pair in bundle.ftc._grids for g in pair])
     counts = {name: k.launches for name, k in kernels.items()}
     srv.metrics.finish()
     d = srv.decode
-    return dict(tokens=srv.completions_by_rid(), summary=srv.metrics.summary(), times=times,
-                step_tokens=[r.tokens_generated for r in srv.metrics.steps], logits=logits, counts=counts,
-                captures=d.captures, replays=d.replays, capture_s=d.capture_s, pool_bytes=d.pool_bytes,
-                swaps_after_first_step=bundle.swaps - swaps)
+    return dict(tokens=srv.completions_by_rid(), summary=srv.metrics.summary(counters=srv.counters_host()),
+                times=times, step_tokens=[r.tokens_generated for r in srv.metrics.steps], logits=logits,
+                counts=counts, captures=d.captures, replays=d.replays, capture_s=d.capture_s,
+                pool_bytes=d.pool_bytes, swaps_after_first_step=bundle.swaps - swaps, grid_ptrs=grid_ptrs,
+                server=srv)
 
 
 def _steady(run: dict, skip: int = 2) -> tuple[float, float]:
@@ -561,6 +581,8 @@ def server_phase(dev, smi: str, arch: str):
           f"{arch}: unprotected (PE(0,0) bit 30 stuck-at-1) logits equal off")
     phase("serve_checks", arch=arch, protected_equals_off=True, unprotected_differs=True,
           graph_equals_eager=["off", "protected", "unprotected"], compared="every step's logits, every token")
+    plan = serve_remap_phase(bundle, smi, arch)
+    serve_counters_phase(bundle, smi, arch, runs["protected"], bist, scenarios[1][2], plan)
 
     # the same smoke-size server on the card and on the CPU (plain versions)
     small = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
@@ -575,8 +597,238 @@ def server_phase(dev, smi: str, arch: str):
     check(err <= 1e-4, f"{arch} smoke server on the card vs the CPU: first-step logits differ by {err}")
     check(all(np.array_equal(gt[r], ct[r]) for r in ct) and gt.keys() == ct.keys(),
           f"{arch} smoke server on the card vs the CPU: tokens differ")
-    phase("serve_reference", arch=small.name, max_abs_err_logits=err, tokens_equal=True, card_captures=gr["captures"])
+    # the remap scenario: the plan swapped in at step 2, after the capture
+    remap = dict(inject=tuple((REMAP_AT, f) for f in REMAP_FAULTS), bist_at=REMAP_AT, repair="remap")
+    gm = serve(gb, "protected", small.vocab, record_logits=True, **remap)
+    cm = serve(cb, "protected", small.vocab, record_logits=True, **remap)
+    check(len(gm["server"].repair_events) == len(cm["server"].repair_events) == 1,
+          f"{arch} smoke remap: repair events {gm['server'].repair_events} on the card, "
+          f"{cm['server'].repair_events} on the CPU")
+    rerr = [float((g.cpu() - c).abs()[..., :small.vocab].max()) for g, c in zip(gm["logits"], cm["logits"])]
+    check(max(rerr) <= 1e-4, f"{arch} smoke remap on the card vs the CPU: logits differ by {max(rerr)}")
+    check(gm["tokens"].keys() == cm["tokens"].keys()
+          and all(np.array_equal(gm["tokens"][r], cm["tokens"][r]) for r in cm["tokens"]),
+          f"{arch} smoke remap on the card vs the CPU: tokens differ")
+    phase("serve_reference", arch=small.name, max_abs_err_logits=err, tokens_equal=True, card_captures=gr["captures"],
+          remap_max_abs_err_logits=max(rerr), remap_tokens_equal=True, remap_card_captures=gm["captures"])
     return bundle, runs
+
+
+# six faults in six PE columns, in PE rows 0-3 (a 4-slot step reaches them),
+# on bits a bf16 output keeps; they appear at step 2, after the capture, and
+# a BIST confirms them there: the DPPU (4) repairs columns 0, 2, 3, 4 and
+# columns 6 and 7 are over capacity
+REMAP_FAULTS = ((0, 0, 30, 1), (1, 2, 29, 1), (2, 3, 30, 1), (3, 4, 28, 1), (0, 6, 30, 1), (1, 7, 29, 1))
+REMAP_AT = 2
+
+
+def _pruned_outputs(plan, m: int, n: int, dev) -> torch.Tensor:
+    """(m, n) bool: the outputs the plan zeroes, out[i, j] on
+    PE(i % rows, col_map[j % cols])."""
+    prune = plan.prune[:, plan.col_map.long()]
+    rows, cols = prune.shape
+    return prune[(torch.arange(m, device=dev) % rows)[:, None], torch.arange(n, device=dev) % cols]
+
+
+def pruned_call_check(bundle, plan) -> dict:
+    """One ``ft_matmul`` call on the server's live grids (the pair the graph
+    reads, built for ``plan``) at layer 0's q projection: on a real
+    activation (the normed embedding of four tokens, bf16, the bf16 store)
+    every output on a pruned PE is exactly +0, the same in the plain
+    version, and the rest within RAND_TOL of it; on integer-valued operands
+    of the same shapes, bitwise the plain version.  Not main-path launches."""
+    from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_ref
+    from repro_torch.models.layers import rmsnorm
+
+    dev = bundle.device
+    and_g, or_g = bundle.ftc.mask_grids(plan)
+    launches0 = ft_matmul.launches
+    blk = bundle.work["blocks"][0]
+    tok = torch.tensor([1, 17, 301, 409], device=dev)
+    x = rmsnorm(bundle.work["embed"][tok], blk["ln1"])
+    w = blk["attn"]["wq"]
+    pos = _pruned_outputs(plan, x.shape[0], w.shape[1], dev)
+    check(bool(pos.any()) and bool(((and_g == 0) & (or_g == 0)).any()), "the plan prunes no output")
+    out = ft_matmul(x, w, and_g, or_g, out_dtype=torch.bfloat16)
+    ref = ft_matmul_ref(x, w, and_g, or_g, out_dtype=torch.bfloat16)
+    check(bool((out.view(torch.int16)[pos] == 0).all()) and bool((ref.view(torch.int16)[pos] == 0).all()),
+          "pruned outputs are not exactly +0")
+    clean = torch.matmul(x.float(), w.float())
+    check(bool((clean[pos] != 0).all()), "a pruned output is zero without the plan")
+    scale = torch.matmul(x.float().abs(), w.float().abs()) + 1e-30
+    # both store bf16: one bf16 rounding apart at most, beside the f32 sum order
+    err = float(((out.float() - ref.float()).abs() / scale)[~pos].max())
+    check(err <= 2**-7, f"pruned call: unpruned outputs {err} of |x|@|w| from the plain version")
+    g = torch.Generator(device=dev).manual_seed(5)
+    xi = torch.randint(-4, 5, tuple(x.shape), generator=g, device=dev).to(torch.bfloat16)
+    wi = torch.randint(-4, 5, tuple(w.shape), generator=g, device=dev).to(torch.bfloat16)
+    bit = torch.equal(ft_matmul(xi, wi, and_g, or_g).view(torch.int32), ft_matmul_ref(xi, wi, and_g, or_g).view(torch.int32))
+    check(bit, "pruned call: integer-valued operands not bitwise equal to the plain version")
+    ft_matmul.launches = launches0
+    return dict(pruned_outputs=int(pos.sum()), outputs=pos.numel(), real_activation_unpruned_err_over_scale=err,
+                integer_operands_bitwise=True)
+
+
+def plan_swap_cost(bundle, plan, swaps: int = 20) -> dict:
+    """The bundle's context swapped between ``plan`` and the identity plan
+    ``swaps`` times: ms a swap (host clock around the swaps and a sync), the
+    held grid pairs it rewrites, and its device kernels from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ftc, ident = bundle.ftc, bundle.identity_plan
+    back = ftc.plan
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(swaps):
+        ftc.swap(plan=ident if i % 2 == 0 else plan)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / swaps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(4):
+            ftc.swap(plan=ident if i % 2 == 0 else plan)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in _device_events(prof.key_averages())) / 4
+    ftc.swap(plan=back)
+    return dict(swap_ms=ms, grid_pairs_rewritten=len(ftc._grids), increment_rewritten=ftc._increment is not None,
+                device_ops_per_swap=kernels)
+
+
+def serve_remap_phase(bundle, smi: str, arch: str) -> dict:
+    """``repair="remap"`` at full width: the six faults of REMAP_FAULTS
+    appear at step 2 and a BIST confirms them; the scan, the manager
+    (REMAPPED), the planner (salience of the f32 masters) and the plan swap
+    into the captured step follow.  Captured and eager: one repair.plan
+    event, after the capture; 4 effective slots and quality 0.75 throughout;
+    every step's logits and every token bitwise equal; one capture; the
+    launches per step of the main path; the grids at the same addresses;
+    one pruned call on the live grids.  Then the same faults with
+    ``repair="none"``: the two columns retire and the slots drop."""
+    remap = dict(inject=tuple((REMAP_AT, f) for f in REMAP_FAULTS), bist_at=REMAP_AT)
+    t0 = time.perf_counter()
+    run = serve(bundle, "protected", bundle.lm.vocab, record_logits=True, repair="remap", **remap)
+    srv, steps, counts = run["server"], len(run["times"]), run["counts"]
+    events = srv.repair_events
+    check(len(events) == 1 and events[0]["step"] == REMAP_AT and events[0]["remapped_cols"] == [6, 7],
+          f"{arch} remap: repair events {events}")
+    eff = [r.effective_slots for r in srv.metrics.steps]
+    check(all(e == 4 for e in eff) and srv.manager.quality_fraction == 0.75 and srv.manager.n_remapped == 2,
+          f"{arch} remap: effective slots {eff}, quality {srv.manager.quality_fraction}")
+    check(run["captures"] == 1 and run["replays"] == steps - 1 and run["swaps_after_first_step"] >= 1,
+          f"{arch} remap: {run['captures']} captures, {run['replays']} replays, "
+          f"{run['swaps_after_first_step']} swaps after the capture in {steps} steps")
+    for name, n in per_step(arch).items():
+        check(counts[name] == n * steps, f"{arch} remap: {name} launched {counts[name]} times in {steps} steps")
+    check(counts["probe_check_pair"] == steps, f"{arch} remap: {counts['probe_check_pair']} pair probes")
+    check(all(p == run["grid_ptrs"][0] for p in run["grid_ptrs"]), f"{arch} remap: the held grids moved")
+    check(bundle.ftc.plan is srv.plan and srv.plan is not bundle.identity_plan, f"{arch} remap: plan not in the context")
+    pruned = pruned_call_check(bundle, srv.plan)
+    check([g.data_ptr() for g in bundle.ftc.mask_grids(srv.plan)] == run["grid_ptrs"][-1][:2],
+          f"{arch} remap: the pruned call's grids are not the live ones")
+    swap = plan_swap_cost(bundle, srv.plan)
+    eager = serve(bundle, "protected", bundle.lm.vocab, record_logits=True, capture=False, repair="remap", **remap)
+    check(eager["counts"] == counts and eager["server"].repair_events == events,
+          f"{arch} remap: the eager run launched {eager['counts']} with events {eager['server'].repair_events}")
+    check(eager["tokens"].keys() == run["tokens"].keys()
+          and all(np.array_equal(eager["tokens"][r], run["tokens"][r]) for r in run["tokens"]),
+          f"{arch} remap: the captured step's tokens differ from the eager step's")
+    check(_same_bits(run["logits"], eager["logits"]), f"{arch} remap: the captured step's logits differ from the eager's")
+    none = serve(bundle, "protected", bundle.lm.vocab, repair="none", **remap)
+    nsrv = none["server"]
+    none_eff = [r.effective_slots for r in nsrv.metrics.steps]
+    check(min(none_eff) < 4 and len(nsrv.manager.retired_coords()) == 2 and not nsrv.repair_events,
+          f"{arch} repair=none: effective slots {none_eff}, retired {sorted(nsrv.manager.retired_coords())}")
+    # the steps after the one that took the plan (its salience sweep)
+    (ms, tps), (ems, etps) = _steady(run, skip=REMAP_AT + 1), _steady(eager, skip=REMAP_AT + 1)
+    out = dict(arch=arch, steps=steps, repair_event=events[0], effective_slots=sorted(set(eff)),
+               quality_fraction=srv.manager.quality_fraction, launches=counts, captures=run["captures"],
+               graph_equals_eager=True, step_ms_median=ms, tokens_per_s=tps,
+               repair_step_s=run["times"][REMAP_AT], eager_repair_step_s=eager["times"][REMAP_AT],
+               eager_step_ms_median=ems, eager_tokens_per_s=etps, pruned_call=pruned, plan_swap=swap,
+               repair_none_effective_slots=sorted(set(none_eff)), repair_none_retired=len(nsrv.manager.retired_coords()),
+               phase_s=time.perf_counter() - t0, card=smi)
+    phase("serve_remap", **out)
+    plan = srv.plan
+    del run, eager, none, srv, nsrv
+    return plan
+
+
+def kernels_per_replay(bundle, *, counters: bool, steps: int = 3, **serve_kw) -> dict:
+    """Device kernels and copies a replayed protected step, from the
+    profiler over ``steps`` steps after the warm-up and capture (a window
+    that all device records reached: ``agreed_window``)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.serving import FaultInjector, FaultTolerantServer
+
+    cfg = dataclasses.replace(bundle.cfg, mode="protected", counters=counters, series=counters)
+
+    def window():
+        srv = FaultTolerantServer(cfg, bundle=bundle, injector=FaultInjector(cfg.rows, cfg.cols, seed=cfg.seed + 1))
+        for t in trace(bundle.lm.vocab):
+            srv.submit(t["prompt"], t["max_new_tokens"])
+        for _ in range(2):
+            srv.step()
+        torch.cuda.synchronize()
+        launches0 = {name: k.launches for name, k in _kernels().items()}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=steps, repeat=1)) as prof:
+            for _ in range(1 + steps):
+                srv.step()
+                prof.step()
+        for name, k in _kernels().items():  # not main-path launches
+            k.launches = launches0[name]
+        return prof.key_averages(), None
+
+    ka, _, seen = agreed_window(window)
+    dev = _device_events(ka)
+    return dict(device_kernels=sum(e.count for e in dev if not e.key.startswith(("Memcpy", "Memset"))) / steps,
+                device_copies=sum(e.count for e in dev if e.key.startswith(("Memcpy", "Memset"))) / steps,
+                host_syncs=sum(e.count for e in ka if e.key in ("cudaStreamSynchronize",
+                                                                "cudaDeviceSynchronize")) / steps,
+                window_device_events=seen)
+
+
+def serve_counters_phase(bundle, smi: str, arch: str, prot: dict, bist, inject, plan) -> dict:
+    """The protected scenario of ``serve_*`` with ``counters`` and ``series``
+    on, through the captured step: every step's logits and every token
+    bitwise the counters-off run's; ``protected_calls`` the launches of the
+    run (a batched launch is one array execution per expert); the series
+    one row a step.  Then the captured step's ms with and without them, in
+    turns (off, on, on, off), the device kernels, copies and syncs a
+    replayed step that they add, and the cost of a swap to ``plan`` (the
+    remap phase's) now that the context also rewrites the increment."""
+    t0 = time.perf_counter()
+    run = serve(bundle, "protected", bundle.lm.vocab, faults=bist, inject=inject, record_logits=True,
+                counters=True, series=True)
+    srv, steps, counts = run["server"], len(run["times"]), run["counts"]
+    check(run["tokens"].keys() == prot["tokens"].keys()
+          and all(np.array_equal(run["tokens"][r], prot["tokens"][r]) for r in prot["tokens"]),
+          f"{arch} counters: tokens differ from the counters-off run")
+    check(_same_bits(run["logits"], prot["logits"]), f"{arch} counters: logits differ from the counters-off run")
+    check(counts == prot["counts"] and run["captures"] == 1, f"{arch} counters: launches {counts}, {run['captures']} captures")
+    c = srv.counters_host()
+    experts = bundle.lm.moe.n_padded if bundle.lm.moe else 1
+    want_calls = counts["ft_matmul"] + experts * counts["ft_matmul_batched"]
+    check(c["steps"] == steps and c["protected_calls"] == want_calls and c["plain_calls"] == 0,
+          f"{arch} counters: {c['steps']} steps, {c['protected_calls']} protected calls; the run launched "
+          f"{counts} in {steps} steps ({want_calls} array executions)")
+    series = srv.series_host()
+    check(all(len(v) == steps for v in series.values())
+          and series["tokens"].tolist() == run["step_tokens"], f"{arch} series: {len(series['tokens'])} rows")
+    timing = {"off": [], "on": []}
+    for on in (False, True, True, False):
+        r = serve(bundle, "protected", bundle.lm.vocab, faults=bist, inject=inject, counters=on, series=on)
+        timing["on" if on else "off"].append(_steady(r)[0])
+    graph = {k: kernels_per_replay(bundle, counters=on) for k, on in (("off", False), ("on", True))}
+    swap = plan_swap_cost(bundle, plan)
+    check(swap["increment_rewritten"], f"{arch} counters: a swap did not rewrite the increment")
+    out = dict(arch=arch, steps=steps, counters=c, series_rows=len(series["tokens"]), counters_equal_off=True,
+               step_ms_median_off=timing["off"], step_ms_median_on=timing["on"], replayed_step=graph,
+               plan_swap_with_increment=swap,
+               graph_kernels_added=graph["on"]["device_kernels"] - graph["off"]["device_kernels"],
+               phase_s=time.perf_counter() - t0, card=smi)
+    phase("serve_counters", **out)
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -808,6 +1060,26 @@ def _device_events(ka) -> list:
     return [e for e in ka if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
 
 
+def agreed_window(window, tries: int = 6):
+    """A profiled window that every device record reached.  ``window()``
+    profiles a fresh window and returns (its key averages, what it
+    measured).  torch.profiler can lose device records of a window at
+    random (on an H100 with torch 2.11 a window of four replayed qwen steps
+    once reported 3 of its 4 pair probes while every ``ft_matmul`` record
+    arrived) and never adds one, so windows are taken until the largest
+    count of device events has been reported twice; the checks read that
+    window.  Returns (key averages, measured, device events of each window
+    taken).  Fails when no two windows agree in ``tries``."""
+    seen, taken = [], []
+    for _ in range(tries):
+        ka, got = window()
+        seen.append(sum(e.count for e in _device_events(ka)))
+        taken.append((ka, got))
+        if seen.count(max(seen)) == 2:  # only a window at the largest count can make it two
+            return (*taken[-1], seen)
+    check(False, f"no two of {tries} profiled windows reported the same device events: {seen}")
+
+
 # the csrc kernels a served step launches, by the name the profiler reports
 STEP_KERNEL_NAMES = {"ft_matmul.cu": ("ft_strip_kernel", "ft_strip_mma_kernel", "ft_kfast_kernel"),
                      "probe_check_pair": ("probe_check_pair_kernel",), "probe_check": ("probe_check_kernel",)}
@@ -820,32 +1092,37 @@ def profile_phase(bundle, smi: str, *, capture: bool, steps: int = 4) -> dict:
     a step, each csrc kernel's device launches a step, and the top device
     kernels and host ops, from ``torch.profiler`` over ``steps`` steady
     steps (its schedule drops one warm-up step, so no event at the window's
-    start is lost).  The captured step's csrc kernels must be exactly the
-    main path's: the matmul kernels of ``per_step`` and one pair probe."""
+    start is lost) of a window that every device record reached
+    (``agreed_window``).  The captured step's csrc kernels must be exactly
+    the main path's: the matmul kernels of ``per_step`` and one pair
+    probe."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.serving import FaultInjector, FaultTolerantServer
 
     cfg = dataclasses.replace(bundle.cfg, mode="protected")
-    inj = FaultInjector(cfg.rows, cfg.cols, seed=cfg.seed + 1)
-    inj.inject_at(0, 1, bit=30, val=1)
-    srv = FaultTolerantServer(cfg, bundle=bundle, injector=inj, capture=None if capture else False)
-    for t in trace(bundle.lm.vocab):
-        srv.submit(t["prompt"], t["max_new_tokens"])
-    for _ in range(2):  # the warm-up and capture, the first replay
-        srv.step()
-    torch.cuda.synchronize()
-    wall = 0.0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=steps, repeat=1)) as prof:
-        for i in range(1 + steps):
-            t0 = time.perf_counter()
-            srv.step()  # ends in the step's host sync
-            if i:
-                wall += time.perf_counter() - t0
-            prof.step()
-    wall /= steps
-    ka = prof.key_averages()
+
+    def window():
+        inj = FaultInjector(cfg.rows, cfg.cols, seed=cfg.seed + 1)
+        inj.inject_at(0, 1, bit=30, val=1)
+        srv = FaultTolerantServer(cfg, bundle=bundle, injector=inj, capture=None if capture else False)
+        for t in trace(bundle.lm.vocab):
+            srv.submit(t["prompt"], t["max_new_tokens"])
+        for _ in range(2):  # the warm-up and capture, the first replay
+            srv.step()
+        torch.cuda.synchronize()
+        wall = 0.0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=steps, repeat=1)) as prof:
+            for i in range(1 + steps):
+                t0 = time.perf_counter()
+                srv.step()  # ends in the step's host sync
+                if i:
+                    wall += time.perf_counter() - t0
+                prof.step()
+        return prof.key_averages(), wall / steps
+
+    ka, wall, seen = agreed_window(window)
     dev = _device_events(ka)
     dev_us = sum(_self_device_us(e) for e in dev)
     kernels = [e for e in dev if not e.key.startswith(("Memcpy", "Memset"))]
@@ -853,6 +1130,7 @@ def profile_phase(bundle, smi: str, *, capture: bool, steps: int = 4) -> dict:
                   for name, keys in STEP_KERNEL_NAMES.items()}
     want_mm = sum(per_step(bundle.lm.name).values())
     got = dict(arch=bundle.lm.name, step="captured" if capture else "eager", steps=steps, step_ms=1e3 * wall,
+               window_device_events=seen,
                device_busy_ms=dev_us / 1e3 / steps, device_busy_share=(dev_us / 1e6 / steps) / wall,
                host_launch_calls_per_step=sum(e.count for e in ka if e.key in LAUNCH_KEYS) / steps,
                graph_launches_per_step=sum(e.count for e in ka if "GraphLaunch" in e.key) / steps,

@@ -453,6 +453,85 @@ def apply_mask_grids(
     return ((raw & am) | om).view(torch.float32).to(out.dtype)
 
 
+# --------------------------------------------------------------------------- #
+# element-exact fault accounting (the device side of the obs counters)
+# --------------------------------------------------------------------------- #
+def _pe_multiplicity(m: int, n: int, rows: int, cols: int) -> np.ndarray:
+    """Static (rows, cols) int32 grid: how many elements of an (m, n) output
+    view map onto each PE under out[i, j] -> PE(i % rows, j % cols)."""
+    ri = np.bincount(np.arange(m) % rows, minlength=rows)
+    ci = np.bincount(np.arange(n) % cols, minlength=cols)
+    return np.outer(ri, ci).astype(np.int32)
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    """An integer count as int32, wrapping as the reference's int32 sums do."""
+    return t.to(torch.int64).to(torch.int32)
+
+
+def protected_view_stats(
+    state: FaultState | None,
+    cfg: HyCAConfig,
+    plan: RepairPlan | None,
+    m: int,
+    n: int,
+    *,
+    n_repair: int | None = None,
+) -> dict[str, torch.Tensor]:
+    """Element-exact fault accounting for one (m, n) protected output view.
+
+    Reduces the same grids, capacity clamp and plan gather that
+    :func:`hyca_matmul` applies to values down to int32 element counts (0-d
+    tensors on the state's device).  Each count depends only on (state,
+    plan, geometry, m, n), never on the activations:
+
+      * ``total_elems``      — m·n, every element of the view;
+      * ``fault_elems``      — elements mapped onto faulty PEs;
+      * ``recomputed_elems`` — fault elements the DPPU overwrites (0 in
+        unprotected mode);
+      * ``corrupted_elems``  — fault elements neither recomputed nor pruned;
+      * ``pruned_elems``     — elements the RepairPlan zeroes;
+      * ``fault_col_elems``  — elements in output channels whose PE column
+        carries a corrupting fault.
+    """
+    device = state.device if state is not None else "cpu"
+    total = torch.tensor(m * n, dtype=torch.int32, device=device)
+    if cfg.mode == "off" or state is None:
+        zero = torch.zeros((), dtype=torch.int32, device=device)
+        return {
+            "total_elems": total, "fault_elems": zero, "recomputed_elems": zero,
+            "corrupted_elems": zero, "pruned_elems": zero, "fault_col_elems": zero,
+        }
+    _, _, faulty = _pe_grids(state, cfg.rows, cfg.cols)
+    if cfg.mode == "unprotected":
+        repaired = torch.zeros((cfg.rows, cfg.cols), dtype=torch.bool, device=device)
+    else:
+        repaired = repaired_grid(state, cfg.rows, cfg.cols, _repair_clamp(state, cfg, n_repair))
+    if plan is not None:
+        cm = plan.col_map.long()
+        faulty, repaired = faulty[:, cm], repaired[:, cm]
+        prune = plan.prune[:, cm]
+    else:
+        prune = torch.zeros((cfg.rows, cfg.cols), dtype=torch.bool, device=device)
+    mult = torch.from_numpy(_pe_multiplicity(m, n, cfg.rows, cfg.cols)).to(device, torch.int64)
+
+    def count(mask: torch.Tensor) -> torch.Tensor:
+        return _i32((mult * mask).sum())
+
+    corrupting = faulty & ~repaired & ~prune
+    # channels (j values) per PE column: a column with a corrupting fault
+    # taints every element of every channel mapped onto it
+    chan = torch.from_numpy(np.bincount(np.arange(n) % cfg.cols, minlength=cfg.cols)).to(device, torch.int64)
+    return {
+        "total_elems": total,
+        "fault_elems": count(faulty),
+        "recomputed_elems": count(faulty & repaired),
+        "corrupted_elems": count(corrupting),
+        "pruned_elems": count(prune),
+        "fault_col_elems": _i32(m * (chan * corrupting.any(dim=0)).sum()),
+    }
+
+
 def surviving_columns(state: FaultState, cfg: HyCAConfig) -> int:
     """Column-prefix degradation when #faults > capacity (host-side helper)."""
     fpt = state.fpt.detach().cpu().numpy()

@@ -2,8 +2,9 @@
 
 One object carries the fault-tolerance story of a model call:
 
-  * the :class:`~repro_torch.core.engine.FaultState` (swapped in place per
-    serving fault-state change with :meth:`FTContext.swap_state`);
+  * the :class:`~repro_torch.core.engine.FaultState` and the optional
+    :class:`~repro_torch.core.engine.RepairPlan` (swapped in place per
+    serving change of either with :meth:`FTContext.swap`);
   * the :class:`~repro_torch.core.engine.HyCAConfig` (array geometry, DPPU
     capacity, off/protected/unprotected mode);
   * a :class:`ProtectPolicy` naming which call *sites* run on the protected
@@ -22,9 +23,14 @@ the batched expert matmuls through ``ftc.einsum(spec, x, w, site=...)``;
 Invariant: with ``mode="protected"`` and #faults <= DPPU capacity, every
 dispatch is bit-exact with ``mode="off"``.
 
+Device counters ride beside the step: ``with_ledger`` attaches the static
+call ledger (:func:`repro_torch.obs.counters.trace_site_calls`),
+``with_counters`` a :class:`~repro_torch.obs.counters.Counters`, and
+``accumulate`` folds one step's increment, which :meth:`FTContext.increment`
+holds in a tensor that a swap rewrites in place.
+
 Not in this slice (they raise ``NotImplementedError``): ABFT checksum lanes
-(``abft_matmul``), device counters and the call ledger, and kernel-block
-autotuning.
+(``abft_matmul``) and kernel-block autotuning.
 """
 from __future__ import annotations
 
@@ -113,9 +119,14 @@ class FTContext:
     dispatch: str = "twopass"
     # one RepairPlan for all sites, or {site: RepairPlan}
     plan: object = None
+    # obs: a Counters, and the static call ledger accumulate() folds over
+    counters: object = None
+    ledger: tuple | None = None
     # per-plan AND/OR mask pairs of the fused epilogue, computed once per
-    # context, not once per matmul; :meth:`swap_state` rewrites them in place
+    # context, not once per matmul, and one step's counter increment; both
+    # are rewritten in place by :meth:`swap`
     _grids: list = dataclasses.field(default_factory=list, init=False, repr=False, compare=False)
+    _increment: object = dataclasses.field(default=None, init=False, repr=False, compare=False)
 
     @property
     def mode(self) -> str:
@@ -138,29 +149,81 @@ class FTContext:
         """Same context, new fault table, new mask grids."""
         return dataclasses.replace(self, state=state)
 
-    def swap_state(self, state: FaultState) -> None:
-        """This context, in place, with a new fault table: the per-step
-        serving update.  Every cached AND/OR pair is rebuilt now, eagerly, and
-        copied into the pair's own tensors, so code that holds them (a
-        captured CUDA graph reads fixed addresses) sees the new fault state."""
-        self.state = state
-        for plan, (and_grid, or_grid) in self._grids:
-            new_and, new_or = fault_mask_grids(fault_meta_grid(state, self.hyca, plan))
-            and_grid.copy_(new_and)
-            or_grid.copy_(new_or)
-
     def with_plan(self, plan) -> "FTContext":
-        """Same context, new repair plan."""
+        """Same context, new repair plan, new mask grids."""
         return dataclasses.replace(self, plan=plan)
 
+    def swap(self, *, state: FaultState | None = None, plan=None) -> None:
+        """This context, in place, with a new fault table and/or a new repair
+        plan (``None``: keep the current one): the per-step serving update.
+
+        The mask grids are a function of (state, plan).  Every held AND/OR
+        pair is rebuilt now, eagerly, and copied into the pair's own tensors;
+        a pair held for the outgoing plan (or, for a plan dict, that site's
+        outgoing plan) is rebuilt for the incoming one and then held for it.
+        The counter increment is rewritten the same way.  So code that holds
+        these tensors (a captured CUDA graph reads fixed addresses) sees the
+        new state and plan.  A new plan is validated first; a swap keeps the
+        plan's structure (one plan, or a dict with the same sites)."""
+        moved = {}
+        if plan is not None and plan is not self.plan:
+            old, new = self.plan, plan
+            if isinstance(old, dict) != isinstance(new, dict) or (
+                    isinstance(new, dict) and old.keys() != new.keys()):
+                raise ValueError("a plan swap keeps the plan's structure: one RepairPlan, "
+                                 "or a dict with the same sites")
+            for p in (new.values() if isinstance(new, dict) else (new,)):
+                validate_repair_plan(p, self.hyca.rows, self.hyca.cols)
+            pairs = ((old[k], new[k]) for k in new) if isinstance(new, dict) else ((old, new),)
+            moved = {id(o): n for o, n in pairs}
+            self.plan = plan
+        if state is not None:
+            self.state = state
+        for entry in self._grids:
+            p = entry[0] = moved.get(id(entry[0]), entry[0])
+            new_and, new_or = fault_mask_grids(fault_meta_grid(self.state, self.hyca, p))
+            entry[1][0].copy_(new_and)
+            entry[1][1].copy_(new_or)
+        if self._increment is not None:
+            self._increment.copy_(self._step_increment())
+
     def with_counters(self, counters) -> "FTContext":
-        raise NotImplementedError("device-side FT counters come with the observability slice")
+        """Same context, new :class:`~repro_torch.obs.counters.Counters`."""
+        return dataclasses.replace(self, counters=counters)
 
     def with_ledger(self, ledger) -> "FTContext":
-        raise NotImplementedError("the static call ledger comes with the observability slice")
+        """Attach the static call ledger (:func:`~repro_torch.obs.counters.trace_site_calls`)
+        that ``accumulate`` folds the counters over."""
+        return dataclasses.replace(self, ledger=tuple(ledger))
+
+    def _step_increment(self) -> torch.Tensor:
+        from repro_torch.obs.counters import step_increment  # deferred: obs imports engine
+
+        sites = SITES if self.counters is None else self.counters.sites
+        return step_increment(self.ledger, self.state, self.plan, self.hyca, sites)
+
+    def increment(self) -> torch.Tensor:
+        """One step's counter increment under the current (state, plan,
+        ledger), laid out as :meth:`Counters.fields` over :data:`SITES`.
+        Built on the first call; the same tensor afterwards, rewritten in
+        place by :meth:`swap`."""
+        if self.ledger is None:
+            raise ValueError("the counters need a call ledger; use with_ledger(trace_site_calls(...))")
+        if self._increment is None:
+            self._increment = self._step_increment()
+        return self._increment
 
     def accumulate(self):
-        raise NotImplementedError("counter accumulation comes with the observability slice")
+        """One step's accumulation: ``counters`` plus :meth:`increment`, as a
+        new Counters.  Per-call stats depend only on (state, plan, geometry,
+        shape), so folding the static ledger once per step is exact and
+        leaves the decode step untouched."""
+        if self.counters is None:
+            raise ValueError("accumulate() needs counters; use with_counters(Counters.zero())")
+        from repro_torch.obs.counters import Counters
+
+        return Counters(self.counters.values + self.increment().to(self.counters.values.device),
+                        self.counters.sites)
 
     def _plan_for(self, site: str) -> RepairPlan | None:
         if self.plan is None or isinstance(self.plan, RepairPlan):
@@ -228,7 +291,7 @@ class FTContext:
             if p is plan:
                 return grids
         grids = fault_mask_grids(fault_meta_grid(self.state, self.hyca, plan))
-        self._grids.append((plan, grids))
+        self._grids.append([plan, grids])
         return grids
 
     def _fused(self, x: torch.Tensor, w: torch.Tensor, plan: RepairPlan | None = None,

@@ -19,9 +19,8 @@ The log is the source of truth for the runtime's latency questions:
   * **scan coverage** — ``scan.sweep`` events mark each completed
     whole-array sweep.
 
-This is the PyTorch port's own copy of the JAX package's host-only event
-log (same kinds, same derivations); JSONL serialization, the schema
-validator and the exporters come with the observability slice.
+Serialization is JSONL (one event per line); ``python -m
+repro_torch.obs.schema`` validates emitted files against the event schema.
 
 Events recorded before the first server step (BIST confirmation of factory
 faults, power-on injections) carry ``step=None``; latency derivations skip
@@ -30,6 +29,7 @@ them — a fault whose injection step is unknown has no measurable latency.
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Any, Callable, Iterable
 
@@ -42,8 +42,15 @@ _UNSET = object()
 class Event:
     ts: float              # wall-clock (time.time) at emit
     step: int | None       # server step, None before the loop starts
-    kind: str              # dotted event kind, e.g. "fault.confirmed"
+    kind: str              # dotted event kind, see repro_torch.obs.schema
     data: dict[str, Any]
+
+    def to_json(self) -> dict:
+        return {"ts": self.ts, "step": self.step, "kind": self.kind, "data": self.data}
+
+    @classmethod
+    def from_json(cls, obj: dict) -> "Event":
+        return cls(ts=obj["ts"], step=obj["step"], kind=obj["kind"], data=obj.get("data", {}))
 
 
 class EventLog:
@@ -72,6 +79,26 @@ class EventLog:
     def of_kind(self, *kinds: str) -> list[Event]:
         want = set(kinds)
         return [e for e in self.events if e.kind in want]
+
+    # ------------------------------------------------------------------ #
+    # serialization
+    # ------------------------------------------------------------------ #
+    def dumps(self) -> str:
+        return "".join(json.dumps(e.to_json()) + "\n" for e in self.events)
+
+    def to_jsonl(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.dumps())
+
+    @classmethod
+    def from_jsonl(cls, path: str) -> "EventLog":
+        log = cls()
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    log.events.append(Event.from_json(json.loads(line)))
+        return log
 
 
 # --------------------------------------------------------------------------- #

@@ -36,6 +36,11 @@ def site_fallback_total() -> dict[tuple[str, str], int]:
     return dict(_FALLBACKS)
 
 
+def fallback_summary() -> dict[str, int]:
+    """Flat ``{"site/reason": count}`` view for the metrics exporter."""
+    return {f"{site}/{reason}": n for (site, reason), n in sorted(_FALLBACKS.items())}
+
+
 def reset_site_fallbacks() -> None:
     """Clear counters and the warned-once set (tests)."""
     _FALLBACKS.clear()

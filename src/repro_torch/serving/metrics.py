@@ -12,8 +12,7 @@ own), ``summary()`` also derives the fault-lifecycle observability metrics:
 detection latency (injection → CONFIRMED step deltas — exact under chaos
 injection, where injection steps are known), suspect latency, repair
 latency, completed scan sweeps, and scan coverage.  ``counters=`` embeds a
-host-folded counter dict (device counters come with the observability
-slice).
+host-folded counter dict (``FaultTolerantServer.counters_host()``).
 
 The wall clock starts lazily at the first ``record_step``, NOT at
 construction — bundle build and kernel build time between constructing a
@@ -43,7 +42,7 @@ class StepRecord:
     surviving_cols: int
     scan_ok: bool | None           # None when no scan ran this step
     completed: int
-    remapped: int = 0              # PEs handled model-side (repair slice)
+    remapped: int = 0              # PEs handled model-side (REMAPPED)
     quality_fraction: float = 1.0  # fraction of columns with trusted output
 
 

@@ -41,9 +41,16 @@ same step runs eagerly through the same buffers.
 The decode syncs the host once, to read the sampled tokens (a protected
 step's scan reads its flags and hit counters before it).
 
-Not in this slice (they raise ``NotImplementedError``): ``repair`` modes
-other than ``"none"``, device ``counters``, the telemetry ``series`` and the
-``abft`` canary.
+Past DPPU capacity, ``ServerConfig.repair="remap"`` turns over-capacity
+confirmed faults REMAPPED: they stay in the served fault state while the
+active RepairPlan prunes salience-chosen channels onto them.  The repair
+hook swaps the plan into the bundle's context in place, like a fault state,
+so the captured step serves it without a recapture.  ``counters`` adds one
+device add a step (one graph node) of an increment rewritten per swap;
+``series`` records one telemetry row a step with one asynchronous copy.
+
+Not in this slice (they raise ``NotImplementedError``): ``repair="retrain"``
+(the training slice) and the ``abft`` canary (the transients slice).
 """
 from __future__ import annotations
 
@@ -63,7 +70,11 @@ from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_batched
 from repro_torch.models.lm import (
     LMConfig, Params, cast_params, decode_step, init_cache, init_params, tree_map,
 )
+from repro_torch.obs.counters import Counters, trace_site_calls
 from repro_torch.obs.events import EventLog
+from repro_torch.obs.series import SeriesBuffer, record_step
+from repro_torch.repair.plan import remap_plan
+from repro_torch.repair.remap import weight_salience
 from repro_torch.serving.fault_manager import FaultInjector, FaultManager, FaultManagerConfig
 from repro_torch.serving.metrics import ServingMetrics, StepRecord
 from repro_torch.serving.queue import CompletedRequest, Request, RequestQueue
@@ -86,9 +97,16 @@ class ServerConfig:
     bist: bool = True              # power-on: confirm the factory fault map
     boot_scan: bool = False        # probe-based power-on sweep instead
     fault_rate: float = 0.0        # Poisson new faults per step (wearout)
-    repair: str = "none"           # none | remap | retrain (the latter two: repair slice)
-    counters: bool = False         # device counters: observability slice
-    series: bool = False           # telemetry ring: observability slice
+    # model-side remediation past DPPU capacity:
+    #   none    — overflow faults RETIRE columns (throughput cliff)
+    #   remap   — overflow columns are REMAPPED: a salience-chosen pruned
+    #             residue class lands on them; the server keeps full slots
+    #   retrain — remap plus a budgeted fine-tune: the training slice
+    repair: str = "none"
+    max_remap_fraction: float = 0.5
+    counters: bool = False         # device counters, one add a step
+    series: bool = False           # one telemetry row a step into a device ring
+    series_capacity: int = 4096    # ring depth: the last N steps are resident
     abft: bool = False             # ABFT canary: transients slice
     seed: int = 0
     device: str = "cuda"           # where params, cache and kernels live
@@ -166,12 +184,17 @@ class CapturedStep:
         self.capture_s: float | None = None     # wall time of the capture
         self.pool_bytes: int | None = None      # device memory the capture reserved
         self.deltas: dict = {}                  # wrapper -> launches a replay makes
+        # the server's counters (Counters.values), when it keeps them: each
+        # step adds the context's increment, one node of the graph
+        self.counters: torch.Tensor | None = None
 
     def _body(self) -> None:
         b = self.bundle
         logits, _ = decode_step(b.work, b.lm, self.cache, {"token": self.tokens}, ftc=b.ftc)
         self.logits.copy_(logits)
         self.sampled.copy_(logits[:, -1, :].argmax(dim=-1))
+        if self.counters is not None:
+            self.counters.add_(b.ftc.increment())
 
     def __call__(self) -> None:
         if not self.capture:
@@ -224,16 +247,14 @@ class ModelBundle:
     default random from a ``torch.Generator`` seeded with ``cfg.seed``.
     The ``lm.dtype`` working copies the step reads are made here, once.
 
-    The bundle holds one FTContext, whose fault table is swapped in place,
-    and one :class:`CapturedStep` per KV cache: each server owns its cache
-    and its step, so servers of every mode share one bundle, and each
-    captures once."""
+    The bundle holds one FTContext, whose fault table and repair plan are
+    swapped in place, and one :class:`CapturedStep` per KV cache: each
+    server owns its cache and its step, so servers of every mode and plan
+    share one bundle, and each captures once."""
 
     def __init__(self, cfg: ServerConfig, lm: LMConfig | None = None, params: Params | None = None):
-        if cfg.counters or cfg.series or cfg.abft:
-            raise NotImplementedError(
-                "counters and series come with the observability slice, abft with the transients slice"
-            )
+        if cfg.abft:
+            raise NotImplementedError("the abft canary comes with the transients slice")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.lm = lm or get_smoke_config(cfg.arch)
@@ -245,11 +266,13 @@ class ModelBundle:
         self.work = cast_params(self.params, self.lm.dtype)
         self.max_faults = cfg.rows * cfg.cols
         self.empty_state = empty_fault_state(self.max_faults, device=self.device)
-        # every step carries a plan (identity until the repair slice lands)
+        # every step carries a plan: the identity until a repair hook swaps
+        # in a remap plan
         self.identity_plan = identity_plan(cfg.rows, cfg.cols, device=self.device)
-        # one FTContext per bundle; the per-step fault table is swapped in
-        # place with swap_state, and the fused dispatch's AND/OR pair, built
-        # here, keeps its tensors for the bundle's life
+        self._salience: np.ndarray | None = None
+        # one FTContext per bundle; the per-step fault table and plan are
+        # swapped in place with swap, and the fused dispatch's AND/OR pair,
+        # built here, keeps its tensors for the bundle's life
         self.ftc = build_ftcontext(
             self.empty_state, self.hyca,
             policy=ProtectPolicy(layer_fraction=cfg.protect_fraction),
@@ -258,12 +281,39 @@ class ModelBundle:
         )
         if cfg.dispatch == "fused":
             self.ftc.mask_grids(self.identity_plan)
-        # a step swaps its fault table into the context when it is not the
-        # one there; the server hands in the same FaultState object until the
-        # injector or the confirmed set changes, so the grids are rebuilt once
-        # per fault-state swap rather than once per step
+        # a step swaps its fault table and plan into the context when they
+        # are not the ones there; the server hands in the same objects until
+        # the injector, the confirmed set or the plan changes, so the grids
+        # are rebuilt once per swap rather than once per step
         self.swaps = 0
         self._steps = weakref.WeakValueDictionary()  # id(cache) -> CapturedStep
+
+    @property
+    def salience(self) -> np.ndarray:
+        """Weight-norm salience per PE residue class of the f32 master params,
+        the remap planner's importance signal.  Computed on the first repair:
+        servers that never remap never pay the host sweep of the params."""
+        if self._salience is None:
+            self._salience = weight_salience(self.params, self.cfg.cols)
+        return self._salience
+
+    @property
+    def ledger(self) -> tuple:
+        """The decode step's static call ledger, recorded on the first call
+        from one step on the ``meta`` device (shapes only) and attached to
+        the context, whose counter increment folds it."""
+        if self.ftc.ledger is None:
+            def meta(a):
+                return torch.empty_like(a, device="meta")
+
+            n = self.cfg.n_slots
+            self.ftc.ledger = trace_site_calls(
+                lambda c, p, ch, t: decode_step(p, self.lm, ch, {"token": t}, ftc=c),
+                self.ftc, tree_map(meta, self.work),
+                init_cache(self.lm, n, self.cfg.smax, device="meta"),
+                torch.zeros((n, 1), dtype=torch.int32, device="meta"),
+            )
+        return self.ftc.ledger
 
     def captured_step(self, cache: Params, *, capture: bool | None = None) -> CapturedStep:
         """The decode step over ``cache`` (:class:`CapturedStep`), made on
@@ -277,17 +327,15 @@ class ModelBundle:
 
     def step_fn(self, params: Params, cache: Params, tok: torch.Tensor,
                 fstate: FaultState, plan) -> tuple[torch.Tensor, Params]:
-        """One decode step of ``cache``'s server: swap ``fstate`` into the
-        context if it changed, copy ``tok`` (n_slots, 1) into the step's
-        token buffer and run the step.  Returns (its logits buffer, ``cache``
-        updated in place); its sampled tokens are in
+        """One decode step of ``cache``'s server: swap ``fstate`` and
+        ``plan`` into the context if either changed, copy ``tok`` (n_slots,
+        1) into the step's token buffer and run the step.  Returns (its
+        logits buffer, ``cache`` updated in place); its sampled tokens are in
         ``captured_step(cache).sampled``."""
         if params is not self.work:
             raise ValueError("the step reads the bundle's working params (ModelBundle.work)")
-        if plan is not self.ftc.plan:
-            raise NotImplementedError("a repair plan other than the bundle's comes with the repair slice")
-        if fstate is not self.ftc.state:
-            self.ftc.swap_state(fstate)
+        if fstate is not self.ftc.state or plan is not self.ftc.plan:
+            self.ftc.swap(state=fstate, plan=plan)
             self.swaps += 1
         step = self.captured_step(cache)
         step.tokens.copy_(tok)
@@ -322,8 +370,8 @@ class FaultTolerantServer:
             raise ValueError(f"unknown mode {cfg.mode!r}")
         if cfg.repair not in ("none", "remap", "retrain"):
             raise ValueError(f"unknown repair mode {cfg.repair!r}")
-        if cfg.repair != "none":
-            raise NotImplementedError(f"repair={cfg.repair!r} comes with the repair slice")
+        if cfg.repair == "retrain":
+            raise NotImplementedError("repair='retrain' comes with the training slice")
         self.cfg = cfg
         self.bundle = bundle or ModelBundle(cfg)
         self.lm = self.bundle.lm
@@ -332,14 +380,35 @@ class FaultTolerantServer:
         self.decode = self.bundle.captured_step(self.cache, capture=capture)
         self.params = self.bundle.work
         self.plan = self.bundle.identity_plan
+        self._repair_key: tuple[int, int] | None = None
         # one event log per server, shared with the injector and the manager;
         # step() stamps the cursor
         self.log = EventLog()
+        self.counters = None
+        if cfg.counters:
+            self.bundle.ledger  # recorded once per bundle, before the first step
+            self.counters = Counters.zero(device=self.device)
+            self.decode.counters = self.counters.values
+        self.series = None
+        self._n_scan_steps = 0
+        if cfg.series:
+            i32, f32 = torch.int32, torch.float32
+            self.series = SeriesBuffer.create(cfg.series_capacity, {
+                "tokens": ((), i32), "queue_depth": ((), i32),
+                "active": ((), i32), "confirmed": ((), i32),
+                "effective_slots": ((), i32), "true_faults": ((), i32),
+                "surviving_cols": ((), i32),
+                "scan_coverage": ((), f32), "capacity_fraction": ((), f32),
+                "quality_fraction": ((), f32),
+            }, device=self.device)
         self.injector = injector or FaultInjector(cfg.rows, cfg.cols, seed=cfg.seed + 1)
         self.injector.log = self.log
         self.manager = FaultManager(
             self.bundle.hyca, self.injector,
-            FaultManagerConfig(confirm_hits=cfg.confirm_hits, scan_block=cfg.scan_block),
+            FaultManagerConfig(
+                confirm_hits=cfg.confirm_hits, scan_block=cfg.scan_block,
+                remap=cfg.repair != "none", max_remap_fraction=cfg.max_remap_fraction,
+            ),
             device=self.device,
         )
         self.manager.log = self.log
@@ -414,6 +483,59 @@ class FaultTolerantServer:
         return max(1, int(np.floor(self.cfg.n_slots * frac)))
 
     # ------------------------------------------------------------------ #
+    # the repair hook
+    # ------------------------------------------------------------------ #
+    def apply_repair(self, *, plan) -> None:
+        """Swap a repair plan into the running server: the next step swaps
+        it into the bundle's context in place, with no recapture."""
+        self.plan = plan
+
+    def _maybe_repair(self) -> None:
+        if self.cfg.repair == "none" or self.cfg.mode != "protected":
+            return
+        key = (self.manager.n_confirmed, self.manager.n_remapped)
+        if self.manager.n_remapped == 0 or key == self._repair_key:
+            return
+        self._repair_key = key
+        # plan only the columns the manager REMAPPED: the overflow past the
+        # max_remap_fraction budget is RETIRED (discarded with its region),
+        # and pruning victims there would double-charge the quality
+        plan = remap_plan(
+            self.manager.confirmed_state, self.bundle.hyca, self.bundle.salience,
+            broken_cols=self.manager.remapped_cols,
+        )
+        self.apply_repair(plan=plan)
+        self.log.emit(
+            "repair.plan",
+            step=self.step_idx,
+            mode=self.cfg.repair,
+            n_remapped=self.manager.n_remapped,
+            remapped_cols=sorted(self.manager.remapped_cols),
+            quality_fraction=self.manager.quality_fraction,
+            retrained=False,
+        )
+
+    @property
+    def repair_events(self) -> list[dict]:
+        """Repair-hook applications, as dicts (a view over the event log)."""
+        return [dict(e.data, step=e.step) for e in self.log.of_kind("repair.plan")]
+
+    def counters_host(self) -> dict | None:
+        """Host-folded device counters (None when ``cfg.counters`` is off)."""
+        return None if self.counters is None else self.counters.to_host()
+
+    def series_host(self) -> dict | None:
+        """Resident rows of the telemetry ring as host arrays, oldest first
+        (None when ``cfg.series`` is off); ``series_start_step()`` gives the
+        step of row 0."""
+        if self.series is None:
+            return None
+        return self.series.harvest(start=self.series_start_step())
+
+    def series_start_step(self) -> int:
+        return 0 if self.series is None else max(0, self.series.written - self.series.capacity)
+
+    # ------------------------------------------------------------------ #
     def step(self) -> list[CompletedRequest]:
         cfg = self.cfg
         step = self.step_idx
@@ -428,6 +550,10 @@ class FaultTolerantServer:
         scan_ok: bool | None = None
         if cfg.mode == "protected":
             scan_ok, _ = self.manager.scan_step()
+
+        # 2b. the repair hook: newly REMAPPED faults rebuild the plan, which
+        # this step swaps into the context
+        self._maybe_repair()
 
         # 3. degraded capacity -> admission limit
         eff = self._effective_slots()
@@ -474,6 +600,23 @@ class FaultTolerantServer:
             remapped=self.manager.n_remapped,
             quality_fraction=self.manager.quality_fraction,
         ), completed)
+        if scan_ok is not None:
+            self._n_scan_steps += 1
+        if self.series is not None:
+            # every value is already on the host (the StepRecord uses them):
+            # one asynchronous copy of the row, no sync
+            record_step(self.series, {
+                "tokens": int(n_decode_tokens),
+                "queue_depth": self.queue.depth(),
+                "active": n_active,
+                "confirmed": self.manager.n_confirmed,
+                "effective_slots": eff,
+                "true_faults": self.injector.n_faults,
+                "surviving_cols": self.manager.surviving_cols,
+                "scan_coverage": min(1.0, self._n_scan_steps / max(self.metrics.steps_per_sweep, 1)),
+                "capacity_fraction": float(self.manager.capacity_fraction),
+                "quality_fraction": float(self.manager.quality_fraction),
+            })
         self.step_idx += 1
         return completed
 
@@ -518,7 +661,7 @@ class FaultTolerantServer:
                     deadline_step=req.deadline_step,
                 ))
         self.metrics.finish()
-        return self.metrics.summary()
+        return self.metrics.summary(counters=self.counters_host())
 
     def completions_by_rid(self) -> dict[int, np.ndarray]:
         return {c.rid: c.tokens for c in self.metrics.completions if c.ok}

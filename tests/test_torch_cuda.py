@@ -408,3 +408,61 @@ def test_captured_step_equals_eager_across_a_swap_on_the_card(arch, dispatch):
             assert gsw[-1] > gsw[1]  # a fault-state swap after the capture
         per_step = [gs.decode.deltas[k] for k in kernels]
         assert gn == en == [steps * n for n in per_step] and (per_step[0] > 0) == (dispatch == "fused")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-3b-a800m"])
+def test_plan_swap_and_counters_in_the_captured_step_on_the_card(arch):
+    """A remap server with counters and series, its step captured and eager:
+    6 faults appear at step 2 and a BIST confirms them, so the repair plan is
+    swapped into the context after the capture.  Every step's logits and
+    every token bitwise equal, one capture, the mask grids rewritten in
+    place at the same addresses, and the counters and series equal between
+    the two runs; ``protected_calls`` counts each batched launch once per
+    expert."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving import FaultInjector, FaultTolerantServer, ModelBundle, ServerConfig
+
+    cfg = ServerConfig(arch=arch, device="cuda", dispatch="fused", n_slots=4, smax=32, rows=8, cols=8,
+                       dppu_size=4, seed=0, mode="protected", repair="remap", counters=True, series=True)
+    lm = get_smoke_config(arch)
+    bundle = ModelBundle(dataclasses.replace(cfg, mode="off"), lm=lm)
+    gen = torch.Generator().manual_seed(3)
+    trace = [torch.randint(0, 512, (4,), generator=gen).numpy() for _ in range(6)]
+    six = [(0, 1, 30, 1), (1, 2, 29, 0), (2, 3, 30, 1), (3, 4, 28, 1), (0, 6, 30, 1), (1, 7, 29, 1)]
+    kernels = (TFM.ft_matmul, TFM.ft_matmul_batched)
+    runs = {}
+    for capture in (True, False):
+        srv = FaultTolerantServer(cfg, bundle=bundle, injector=FaultInjector(8, 8, seed=1), capture=capture)
+        for p in trace:
+            srv.submit(p, 6)
+        logits, ptrs = [], []
+        for k in kernels:
+            k.launches = 0
+        while srv.queue.depth() or srv.scheduler.active:
+            if srv.step_idx == 2:
+                for r, c, b, v in six:
+                    srv.injector.inject_at(r, c, bit=b, val=v)
+                srv.manager.bist()
+            srv.step()
+            logits.append(srv.decode.logits.clone())
+            ptrs.append([g.data_ptr() for _, grids in bundle.ftc._grids for g in grids])
+        runs[capture] = (srv, logits, ptrs, [k.launches for k in kernels])
+    (gs, gl, gp, gn), (es, el, _, en) = runs[True], runs[False]
+    assert [e["step"] for e in gs.repair_events] == [2] and gs.repair_events == es.repair_events
+    assert gs.plan is not bundle.identity_plan and gs.manager.quality_fraction == 0.75
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(gl, el))
+    assert gs.completions_by_rid().keys() == es.completions_by_rid().keys()
+    assert all(np.array_equal(gs.completions_by_rid()[r], es.completions_by_rid()[r]) for r in es.completions_by_rid())
+    assert gs.decode.captures == 1 and gs.decode.replays == len(gl) - 1
+    assert all(p == gp[0] for p in gp)
+    assert gs.counters_host() == es.counters_host()
+    assert all(np.array_equal(gs.series_host()[k], es.series_host()[k]) for k in es.series_host())
+    c = gs.counters_host()
+    assert c["steps"] == len(gl) and c["pruned_elems"] > 0 and gn == en
+    experts = lm.moe.n_padded if lm.moe else 1
+    assert c["protected_calls"] == gn[0] + experts * gn[1]

@@ -131,10 +131,13 @@ def test_site_policy_and_validation():
     with pytest.raises(ValueError, match="expert-matmul patterns"):
         tftc.einsum("bd,df->bf", None, None, site="moe.expert")
     for call in (lambda: tftc.abft_matmul(None, None, site="ffn"),
-                 lambda: tftc.with_counters(None),
                  lambda: TF.build_ftcontext(None, tftc.hyca, fused_block=(8, 128, 128))):
         with pytest.raises(NotImplementedError):
             call()
+    with pytest.raises(ValueError, match="needs counters"):
+        tftc.accumulate()
+    with pytest.raises(ValueError, match="call ledger"):
+        tftc.increment()
 
 
 def test_int_dtype_fused_falls_back_and_is_recorded():

@@ -39,6 +39,9 @@ def test_port_imports_with_jax_and_reference_package_blocked():
         "import repro_torch.configs, repro_torch.core.scan, repro_torch.models.moe\n"
         "import repro_torch.configs.granite_moe_3b, repro_torch.configs.deepseek_moe_16b\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.os_array_matmul, repro_torch.kernels.ref\n"
+        "import repro_torch.repair, repro_torch.obs, repro_torch.obs.counters, repro_torch.obs.series\n"
+        "import repro_torch.obs.schema, repro_torch.obs.trace, repro_torch.obs.replay\n"
+        "import repro_torch.obs.export, repro_torch.obs.httpd\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )
@@ -77,10 +80,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert torch.equal(torch.cat(flags), probe_check_ref(px, pw, ar, window=8))
     assert int(state.hits.sum()) == 1 and int(state.hits[1, 2]) == 1
     assert probe_check.launches == before
-    with pytest.raises(NotImplementedError):
-        ModelBundle(ServerConfig(device="cpu", counters=True))
-    with pytest.raises(NotImplementedError, match="repair slice"):
-        FaultTolerantServer(ServerConfig(device="cpu", repair="remap"))
+    with pytest.raises(NotImplementedError, match="transients"):
+        ModelBundle(ServerConfig(device="cpu", abft=True))
+    with pytest.raises(NotImplementedError, match="training slice"):
+        FaultTolerantServer(ServerConfig(device="cpu", repair="retrain"))
     with pytest.raises(NotImplementedError, match="transients"):
         FaultManager(ServerConfig(device="cpu").hyca(), FaultInjector(8, 8),
                      FaultManagerConfig(abft=True), device="cpu")
