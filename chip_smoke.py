@@ -85,7 +85,27 @@ Phases, each printed on its own line; any failure exits non-zero:
      os_array_matmul + 1 dppu_recompute launch per twopass call with faults,
      1 with none; per shape the kernels' times and TFLOP/s beside bound,
      plain and library.  bf16 runs both kernels on the tensor cores (TMA +
-     wgmma), f32 and int8 on the CUDA cores.
+     wgmma), f32 and int8 on the CUDA cores;
+  9. the transients slice, on qwen1.5-0.5b before it is freed:
+     abft_lanes — FTContext.abft_matmul under fused on layer 0's q, up and
+     down and the head's table.T at M = 4 (f32 masters, then bf16): out
+     bitwise FTContext.matmul's with one ft_matmul launch a call, the
+     checksum lanes within ABFT_TOL of the same call on the CPU; at f32 no
+     flag fault-free or with four faults the DPPU repairs, chk_row flags the
+     faulty column class of an unprotected stuck-at, chk_col flags every
+     row after a weight bit flipped after encoding; at bf16 the flag counts
+     are printed; serve_abft — the captured protected server with the ABFT
+     canary and a fault appearing at step 2: tokens and every step's logits
+     bitwise the canary-off run's, one capture, 169 ft_matmul and 1
+     probe_check_pair a step, no alarm before step 2, the first alarm
+     against the scan's suspect and confirm steps, step ms with the canary
+     on and off in turns; coverage — run_coverage at the detector-coverage
+     benchmark's spec (256 configs, seed 7) on the card: counts equal to the
+     CPU run's, the benchmark's five claims, one build a class, each class's
+     seconds; verify — OnlineVerifier.check_block over one sweep of an
+     unprotected ft_matmul output at qwen's up shape flags exactly the
+     faulty PE, nothing fault-free, and scan_array on the paper's 32 x 32
+     array has no false positive or negative.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -1519,6 +1539,259 @@ def two_pass_phase(dev, smi, bundle) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# transients and the rest of detection (on the served qwen1.5-0.5b)
+# --------------------------------------------------------------------------- #
+# |lane on the card - lane on the CPU| <= ABFT_TOL * its magnitude: (|colsum x|
+# @ |w|) for chk_row, (|x| @ rowsum |w|) for chk_col.  Two f32 reductions in
+# different orders over K <= 2816 (and N = 152064 for wc) differ by a few ulps
+# of that magnitude.
+ABFT_TOL = 1e-5
+# four faults on PE rows 0-3 (a 4-row matmul reaches them): the DPPU (4)
+# repairs them all; the unprotected fault is a stuck-at-1 on the sign bit of
+# PE(1, 3), which manifests on its positive outputs
+ABFT_CAPACITY = ((0, 0, 30, 1), (1, 2, 31, 0), (2, 5, 22, 1), (3, 7, 29, 1))
+ABFT_UNPROTECTED = ((1, 3, 31, 1),)
+ABFT_SERVE_FAULT = (5, 3, 30, 1)   # appears at step 2 on a PE row a 4-slot step never reaches
+
+
+def _fault_state(faults, dev):
+    from repro_torch.core.engine import FaultState
+
+    n = len(faults) + 2
+    fpt = torch.full((n, 2), -1, dtype=torch.int32)
+    bit = torch.zeros(n, dtype=torch.int32)
+    val = torch.zeros_like(bit)
+    for i, (r, c, b, v) in enumerate(sorted(faults, key=lambda f: (f[1], f[0]))):
+        fpt[i, 0], fpt[i, 1], bit[i], val[i] = r, c, b, v
+    return FaultState(fpt, bit, val).to(dev)
+
+
+def _abft_ctx(faults, mode, dev):
+    from repro_torch.core.engine import HyCAConfig
+    from repro_torch.core.ftcontext import ProtectPolicy, build_ftcontext
+    from repro_torch.core.redundancy import DPPUConfig
+
+    hyca = HyCAConfig(rows=ROWS, cols=COLS, dppu=DPPUConfig(size=4, group_size=4), mode=mode)
+    return build_ftcontext(_fault_state(faults, dev), hyca, policy=ProtectPolicy(abft=True), dispatch="fused")
+
+
+def _lane_err(x, w, lanes, cpu_lanes) -> float:
+    """max |card lane - CPU lane| over its magnitude (ABFT_TOL's scale)."""
+    xa, wa = x.float().abs(), w.float().abs()
+    scales = (xa.sum(0, keepdim=True) @ wa, xa @ wa.sum(-1, keepdim=True))
+    return max(float(((a.cpu() - b).abs() / (s.cpu() + 1e-30)).max())
+               for a, b, s in zip(lanes, cpu_lanes, scales))
+
+
+def abft_lanes_phase(dev, smi, bundle) -> dict:
+    """``FTContext.abft_matmul`` under ``fused`` on layer 0's q, up and down
+    and the head's table.T at M = 4, f32 masters then the bf16 working
+    copies: ``out`` bitwise ``FTContext.matmul``'s, one ft_matmul launch a
+    call; the lanes within ABFT_TOL of the same call on the CPU.  At f32: no
+    flag fault-free or with DPPU-capacity faults, chk_row flags the faulty
+    column class under an unprotected stuck-at, chk_col flags every row after
+    a weight flip (bit 30, after encoding).  At bf16 the flag counts are
+    printed, not asserted (the kernel's bf16 store rounds each output)."""
+    from repro_torch.core.engine import abft_encode
+    from repro_torch.kernels.ft_matmul import ft_matmul
+    from repro_torch.transient import abft_check, flip_bits
+
+    t0 = time.perf_counter()
+    blk = bundle.params["blocks"][0]
+    f32 = (("q_1024x1024", blk["attn"]["wq"]), ("up_1024x2816", blk["ffn"]["up"]),
+           ("down_2816x1024", blk["ffn"]["down"]), ("head_1024x152064", bundle.params["embed"].T))
+    g = torch.Generator(device=dev).manual_seed(11)
+    scenarios = {"fault_free": ((), "protected"), "capacity": (ABFT_CAPACITY, "protected"),
+                 "unprotected": (ABFT_UNPROTECTED, "unprotected")}
+    ctxs = {(name, d): _abft_ctx(f, mode, d) for name, (f, mode) in scenarios.items() for d in (dev, "cpu")}
+    err, flags = 0.0, {}
+    for dtype, shapes in ((torch.float32, f32), (torch.bfloat16, two_pass_weights(bundle))):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for name, w in shapes:
+            x = torch.randn((4, w.shape[0]), generator=g, device=dev).to(dtype)
+            wc = abft_encode(w)
+            xc, wcpu, wcc = x.cpu(), w.cpu(), wc.cpu()
+            for sc in scenarios:
+                ctx = ctxs[(sc, dev)]
+                n0 = ft_matmul.launches
+                out, chk_row, chk_col = ctx.abft_matmul(x, w, site="ffn", wc=wc)
+                check(ft_matmul.launches - n0 == 1, f"abft_lanes {tag} {name} {sc}: {ft_matmul.launches - n0} launches")
+                check(_bits_equal(out, ctx.matmul(x, w, site="ffn")),
+                      f"abft_lanes {tag} {name} {sc}: out differs from FTContext.matmul")
+                _, *cpu_lanes = ctxs[(sc, "cpu")].abft_matmul(xc, wcpu, site="ffn", wc=wcc)
+                e = _lane_err(x, w, (chk_row, chk_col), cpu_lanes)
+                check(e <= ABFT_TOL, f"abft_lanes {tag} {name} {sc}: lanes {e} of their magnitude from the CPU's")
+                err = max(err, e)
+                res = abft_check(out, chk_row, chk_col)
+                cols = torch.nonzero(res["col_flags"]).flatten().cpu()
+                n_rows = int(res["row_flags"].sum())
+                flags[f"{tag}/{name}/{sc}"] = [len(cols), n_rows]
+                if tag == "f32" and sc != "unprotected":
+                    check(not bool(res["detected"]), f"abft_lanes f32 {name} {sc}: flags {len(cols)} cols {n_rows} rows")
+                if tag == "f32" and sc == "unprotected":
+                    check(len(cols) > 0 and bool((cols % COLS == 3).all()),
+                          f"abft_lanes f32 {name}: chk_row flagged columns {cols.tolist()[:8]}")
+            # a weight bit flipped after encode: the exponent's top bit (30 of
+            # an f32 word, 14 of a bf16 word), which every |w| < 2 has clear
+            top = 30 if tag == "f32" else 14
+            w_f = flip_bits(w, [w.shape[1] * 7 + 5], [top])
+            out, chk_row, chk_col = ctxs[("fault_free", dev)].abft_matmul(x, w_f, site="ffn", wc=wc)
+            res = abft_check(out, chk_row, chk_col)
+            flags[f"{tag}/{name}/weight_flip"] = [int(res["col_flags"].sum()), int(res["row_flags"].sum())]
+            if tag == "f32":
+                check(bool(res["row_flags"].all()), f"abft_lanes f32 {name}: weight flip flags rows "
+                      f"{res['row_flags'].tolist()}")
+    out = dict(shapes=[s[0] for s in f32], M=4, array=f"{ROWS}x{COLS}", dppu=4, tol=f"{ABFT_TOL}*magnitude",
+               max_lane_err_vs_cpu=err, flags_cols_rows=flags,
+               bf16_fault_free_flags={k: v for k, v in flags.items() if k.startswith("bf16") and k.endswith("fault_free")},
+               seconds=time.perf_counter() - t0, card=smi)
+    phase("abft_lanes", **out)
+    return out
+
+
+def serve_abft_phase(dev, smi, bundle) -> dict:
+    """The captured qwen server, protected and fused, with the ABFT canary:
+    no BIST faults, ABFT_SERVE_FAULT appears at step 2.  Tokens and every
+    step's logits bitwise the canary-off run's, one capture, the main path's
+    launches a step (169 ft_matmul, 1 probe_check_pair), no alarm before
+    step 2; the first alarm against the scan's suspect and confirm steps,
+    and the median step ms with the canary on and off, in turns."""
+    t0 = time.perf_counter()
+    vocab, inject = bundle.lm.vocab, ((2, ABFT_SERVE_FAULT),)
+    on = serve(bundle, "protected", vocab, inject=inject, record_logits=True, abft=True)
+    off = serve(bundle, "protected", vocab, inject=inject, record_logits=True, abft=False)
+    steps, counts = len(on["times"]), on["counts"]
+    check(on["tokens"].keys() == off["tokens"].keys()
+          and all(np.array_equal(on["tokens"][r], off["tokens"][r]) for r in off["tokens"]),
+          "serve_abft: tokens differ from the canary-off run")
+    check(_same_bits(on["logits"], off["logits"]), "serve_abft: logits differ from the canary-off run")
+    check(on["captures"] == 1 and on["replays"] == steps - 1,
+          f"serve_abft: {on['captures']} captures and {on['replays']} replays in {steps} steps")
+    check(counts == off["counts"] and counts["ft_matmul"] == per_step(QWEN)["ft_matmul"] * steps
+          and counts["probe_check_pair"] == steps, f"serve_abft: launched {counts} in {steps} steps")
+    log, mgr = on["server"].log, on["server"].manager
+    alarms = [e.step for e in log.of_kind("abft.alarm")]
+    check(alarms and min(alarms) == 2, f"serve_abft: alarms at steps {alarms[:4]}")
+    check(off["server"].manager.abft_alarms == 0, "serve_abft: the canary-off run alarmed")
+    r, c = ABFT_SERVE_FAULT[:2]
+    at = {k: [e.step for e in log.of_kind(f"fault.{k}") if (e.data["row"], e.data["col"]) == (r, c)]
+          for k in ("suspect", "confirmed")}
+    check(bool(at["confirmed"]), "serve_abft: the scan never confirmed the fault")
+    timing = {"off": [], "on": []}
+    for abft in (False, True, True, False):
+        run = serve(bundle, "protected", vocab, inject=inject, abft=abft)
+        timing["on" if abft else "off"].append(_steady(run)[0])
+    # the canary alone, on the host clock, with the fault present (it alarms)
+    alarms_seen = mgr.abft_alarms
+    t = time.perf_counter()
+    for _ in range(200):
+        mgr.abft_check()
+    canary_ms = 1e3 * (time.perf_counter() - t) / 200
+    out = dict(steps=steps, launches=counts, captures=on["captures"], equals_canary_off=True,
+               abft_alarms=alarms_seen, canary_host_ms=canary_ms, first_alarm_step=min(alarms), injected_step=2,
+               scan_suspect_step=at["suspect"][0] if at["suspect"] else None, scan_confirmed_step=at["confirmed"][0],
+               canary_latency_steps=min(alarms) - 2, scan_confirm_latency_steps=at["confirmed"][0] - 2,
+               step_ms_median_off=timing["off"], step_ms_median_on=timing["on"],
+               seconds=time.perf_counter() - t0, card=smi)
+    phase("serve_abft", **out)
+    return out
+
+
+def coverage_phase(dev, smi) -> dict:
+    """``run_coverage`` at the detector-coverage benchmark's spec on the card:
+    its counts equal the CPU run's exactly (int32 datapath), the benchmark's
+    five coverage claims hold, one build a class; then each class's seconds
+    (build plus first draw, and a second draw through the built program)."""
+    from repro_torch.transient.coverage import DETECTORS, FAULT_CLASSES, CoverageSpec, run_class, run_coverage
+
+    t0 = time.perf_counter()
+    spec = CoverageSpec(n_configs=256, seed=7)
+    card = run_coverage(spec, device=dev)
+    card_s = time.perf_counter() - t0
+    cpu = run_coverage(spec, device="cpu")
+
+    def counts(rep):
+        return {fc: (c["n_corrupted"], [c["detectors"][d]["n_detected"] for d in DETECTORS])
+                for fc, c in rep["classes"].items()}
+
+    check(counts(card) == counts(cpu) and card["matrix"] == cpu["matrix"],
+          f"coverage: the card's counts {counts(card)} differ from the CPU's {counts(cpu)}")
+    cov = {(r["fault_class"], r["detector"]): r["coverage"] for r in card["matrix"]}
+    claims = {
+        "scan_permanent>=0.9": cov[("permanent", "scan")] >= 0.9,
+        "scan_weight==0": cov[("transient_weight", "scan")] == 0.0,
+        "verify_weight==0": cov[("transient_weight", "verify")] == 0.0,
+        "abft_weight>=0.5_and_scan+0.3": cov[("transient_weight", "abft")] >= 0.5
+        and cov[("transient_weight", "abft")] >= cov[("transient_weight", "scan")] + 0.3,
+        "abft_mac>=scan+0.2": cov[("transient_mac", "abft")] >= cov[("transient_mac", "scan")] + 0.2,
+    }
+    check(all(claims.values()), f"coverage claims: {claims}")
+    check(all(n == 1 for n in card["retraces"].values()), f"coverage builds: {card['retraces']}")
+    per_class, programs = {}, {}
+    for fc in FAULT_CLASSES:
+        t = time.perf_counter()
+        run_class(spec, fc, programs=programs, device=dev)
+        first = time.perf_counter() - t
+        t = time.perf_counter()
+        run_class(spec, fc, seed=spec.seed + 1, programs=programs, device=dev)
+        per_class[fc] = dict(build_and_first_s=first, second_draw_s=time.perf_counter() - t)
+    out = dict(spec=dataclasses.asdict(spec), counts=counts(card), coverage={f"{a}/{b}": v for (a, b), v in cov.items()},
+               claims=claims, builds=card["retraces"], equals_cpu=True, run_coverage_s=card_s, per_class=per_class,
+               seconds=time.perf_counter() - t0, card=smi)
+    phase("coverage", **out)
+    return out
+
+
+def verify_phase(dev, smi, bundle) -> dict:
+    """``OnlineVerifier.check_block`` over one sweep of the occupied grid on
+    an unprotected ``ft_matmul`` output at qwen's up shape (4 x 1024 ->
+    2816, f32) with one stuck-at (the sign bit of PE(2, 5), stuck at the
+    complement of what output (2, 5) holds): exactly [(2, 5)] in the block
+    that holds it, nothing elsewhere and nothing fault-free; then
+    ``scan_array`` on the paper's 32 x 32 array at visibility 1.0: no false
+    positive or negative."""
+    from repro_torch.core.detection import scan_array
+    from repro_torch.core.engine import HyCAConfig, fault_mask_grids, fault_meta_grid
+    from repro_torch.kernels.ft_matmul import ft_matmul
+    from repro_torch.runtime import OnlineVerifier
+
+    t0 = time.perf_counter()
+    w = bundle.params["blocks"][0]["ffn"]["up"]
+    x = torch.randn((4, w.shape[0]), generator=torch.Generator(device=dev).manual_seed(12), device=dev)
+    hyca = HyCAConfig(rows=ROWS, cols=COLS, mode="unprotected")
+    clean = ft_matmul(x, w, *fault_mask_grids(fault_meta_grid(_fault_state((), dev), hyca)))
+    r, c = 2, 5
+    sign = int(bool(clean[r, c] < 0))
+    out = ft_matmul(x, w, *fault_mask_grids(fault_meta_grid(_fault_state(((r, c, 31, 1 - sign),), dev), hyca)))
+    v, v0 = OnlineVerifier(rows=ROWS, cols=COLS), OnlineVerifier(rows=ROWS, cols=COLS)
+    n_blocks = v.occupied(*out.shape)[0]
+    faulty = [v.check_block(x, w, out) for _ in range(n_blocks)]
+    clean_runs = [v0.check_block(x, w, clean) for _ in range(n_blocks)]
+    check(faulty == [(False, [(r, c)]) if i == r else (True, []) for i in range(n_blocks)],
+          f"verify: check_block over one sweep gave {faulty}")
+    check(all(ok for ok, _ in clean_runs), f"verify: fault-free check_block flagged {clean_runs}")
+    rng = np.random.default_rng(0)
+    fmap = rng.random((32, 32)) < 0.05
+    res = scan_array(rng, fmap, fault_visibility=1.0, device=dev)
+    check(res.false_positives == 0 and res.false_negatives == 0 and bool((res.detected == fmap).all()),
+          f"verify: scan_array fp {res.false_positives} fn {res.false_negatives}")
+    out_d = dict(shape="up_1024x2816", M=4, fault=[r, c, 31, 1 - sign], blocks=n_blocks, flagged=faulty[r][1],
+                 fault_free_flags=0, scan_array_faults=int(fmap.sum()), scan_array_fp=res.false_positives,
+                 scan_array_fn=res.false_negatives, seconds=time.perf_counter() - t0, card=smi)
+    phase("verify", **out_d)
+    return out_d
+
+
+def transients_phase(dev, smi, bundle) -> None:
+    """The transients slice on the served qwen bundle: abft_lanes,
+    serve_abft, coverage and verify."""
+    abft_lanes_phase(dev, smi, bundle)
+    serve_abft_phase(dev, smi, bundle)
+    coverage_phase(dev, smi)
+    verify_phase(dev, smi, bundle)
+
+
 def main() -> None:
     smi = device_phase()
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
@@ -1537,8 +1810,9 @@ def main() -> None:
         busy = {step: profile_phase(bundle, smi, capture=capture)["device_busy_ms"]
                 for step, capture in (("eager", False), ("captured", True))}
         steady_phase(bundle, smi, busy)
-        if arch == QWEN:  # the kernel tier on the served model's weights
+        if arch == QWEN:  # the kernel tier and the transients slice on the served model's weights
             two_pass = two_pass_phase(dev, smi, bundle)
+            transients_phase(dev, smi, bundle)
         del bundle, runs
         gc.collect()
         torch.cuda.empty_cache()  # the next model's bundle gets the card's memory

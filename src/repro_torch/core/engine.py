@@ -454,6 +454,97 @@ def apply_mask_grids(
 
 
 # --------------------------------------------------------------------------- #
+# ABFT checksum carriers (the decision lives in repro_torch.transient.abft)
+# --------------------------------------------------------------------------- #
+def abft_encode(w: torch.Tensor) -> torch.Tensor:
+    """Encode-time ABFT weight checksum: ``wc[k] = sum_j w[k, j]`` in the
+    accumulator dtype (int32, wrapping, for integer weights; float32
+    otherwise).  Computed once at weight load and stored: a weight bit
+    flipped in memory after encode breaks ``x @ wc == out.sum(-1)``, the
+    only way ABFT sees weight-memory upsets."""
+    if w.dtype.is_floating_point:
+        return w.to(torch.float32).sum(dim=-1)
+    return _i32(w.to(torch.int64).sum(dim=-1))
+
+
+def _lane_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A checksum lane's product in the accumulator dtype: the exact int32
+    accumulate for integers, a float32 matmul otherwise."""
+    if not a.dtype.is_floating_point:
+        return _int_matmul(a, b)
+    return torch.matmul(a, b.to(torch.float32))
+
+
+def abft_checksums(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    state: FaultState | None,
+    *,
+    cfg: HyCAConfig,
+    plan: RepairPlan | None = None,
+    n_repair: int | None = None,
+    wc: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The ABFT checksum lanes of ``x @ w`` carried through the virtual
+    array, corrupted / repaired / pruned by the same packed fault meta as the
+    data.  Returns ``(chk_row, chk_col)``:
+
+      * ``chk_row`` — (1, N) ``colsum(x) @ w``, output row M of the augmented
+        view (PE row ``M % rows``); its syndrome against ``out.sum(rows)``
+        flags corrupted accumulations.  It reads the same ``w`` as the data,
+        so it is blind to weight-memory flips;
+      * ``chk_col`` — (M, 1) ``x @ wc`` with the encode-time ``wc``
+        (:func:`abft_encode`), output column N (PE col ``N % cols``);
+        ``None`` without ``wc``.
+
+    The lanes are computed beside the data matmul, never inside it, so
+    turning them on moves no output bit.  Integer lanes are exact (int32
+    wraps like the accumulator); float lanes reassociate the reduction."""
+    x2 = x.reshape(-1, x.shape[-1])
+    m, n = x2.shape[0], w.shape[-1]
+    if x.dtype.is_floating_point:
+        pref = torch.float32
+        x2 = x2.to(pref)
+        colsum = x2.sum(dim=0, keepdim=True)
+    else:
+        pref = torch.int32
+        colsum = _i32(x2.to(torch.int64).sum(dim=0, keepdim=True))
+    chk_row = _lane_matmul(colsum, w)
+    chk_col = None
+    if wc is not None:
+        chk_col = _lane_matmul(x2, wc.reshape(-1, 1).to(pref))
+    if cfg.mode != "off" and state is not None:
+        meta = fault_meta_grid(state, cfg, plan, n_repair=n_repair)
+        chk_row = apply_fault_epilogue(
+            chk_row, meta, cfg.rows, cfg.cols,
+            row_residue=torch.full((1, 1), m % cfg.rows, dtype=torch.long, device=meta.device),
+        )
+        if chk_col is not None:
+            chk_col = apply_fault_epilogue(
+                chk_col, meta, cfg.rows, cfg.cols,
+                col_residue=torch.full((1,), n % cfg.cols, dtype=torch.long, device=meta.device),
+            )
+    return chk_row, chk_col
+
+
+def hyca_matmul_abft(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    state: FaultState | None,
+    *,
+    cfg: HyCAConfig,
+    n_repair: int | None = None,
+    plan: RepairPlan | None = None,
+    wc: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """:func:`hyca_matmul` plus the ABFT lanes: ``(out, chk_row, chk_col)``,
+    ``out`` bit for bit the plain :func:`hyca_matmul` result."""
+    out = hyca_matmul(x, w, state, cfg=cfg, n_repair=n_repair, plan=plan)
+    chk_row, chk_col = abft_checksums(x, w, state, cfg=cfg, plan=plan, n_repair=n_repair, wc=wc)
+    return out, chk_row, chk_col
+
+
+# --------------------------------------------------------------------------- #
 # element-exact fault accounting (the device side of the obs counters)
 # --------------------------------------------------------------------------- #
 def _pe_multiplicity(m: int, n: int, rows: int, cols: int) -> np.ndarray:

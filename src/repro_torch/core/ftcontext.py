@@ -29,8 +29,9 @@ call ledger (:func:`repro_torch.obs.counters.trace_site_calls`),
 ``accumulate`` folds one step's increment, which :meth:`FTContext.increment`
 holds in a tensor that a swap rewrites in place.
 
-Not in this slice (they raise ``NotImplementedError``): ABFT checksum lanes
-(``abft_matmul``) and kernel-block autotuning.
+``abft_matmul`` adds the ABFT checksum lanes (``ProtectPolicy.abft``)
+beside the data matmul.  Not in this slice (it raises
+``NotImplementedError``): kernel-block autotuning.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ from repro_torch.core.engine import (
     FaultState,
     HyCAConfig,
     RepairPlan,
+    abft_checksums,
     fault_mask_grids,
     fault_meta_grid,
     hyca_matmul,
@@ -79,7 +81,7 @@ class ProtectPolicy:
     ``sites``: which call sites run on the protected array (``None`` = all of
     :data:`SITES`).  ``layer_fraction``: leading fraction of the layer stack
     that runs protected; the remaining layers use plain matmuls.  ``abft``:
-    ABFT checksum lanes, which come with the transients slice.
+    :meth:`FTContext.abft_matmul` carries the ABFT checksum lanes.
     """
 
     sites: frozenset[str] | None = None
@@ -250,8 +252,28 @@ class FTContext:
             raise ValueError(f"unknown dispatch {self.dispatch!r}; known: {DISPATCHES}")
         return out.to(x.dtype)
 
-    def abft_matmul(self, x, w, *, site: str, wc=None):
-        raise NotImplementedError("ABFT checksum lanes come with the transients slice")
+    def abft_matmul(self, x: torch.Tensor, w: torch.Tensor, *, site: str,
+                    wc: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
+        """:meth:`matmul` plus the ABFT checksum lanes carried through the
+        array (``policy.abft``).  Returns ``(out, chk_row, chk_col)``.
+
+        ``out`` is the very call :meth:`matmul` makes (under ``fused``, one
+        ``ft_matmul`` launch); the lanes are computed beside it
+        (:func:`~repro_torch.core.engine.abft_checksums`), so turning them on
+        moves no output bit.  Both lanes are ``None`` when the policy does
+        not cover the site or ``policy.abft`` is off; ``chk_col`` also needs
+        ``wc``, the encode-time weight checksum
+        (:func:`~repro_torch.core.engine.abft_encode`).  The lanes are
+        corrupted element-granularly; under ``plain`` they see no fault
+        state, because the data path sees none.  Syndromes and thresholds
+        are :func:`repro_torch.transient.abft.abft_check`'s."""
+        out = self.matmul(x, w, site=site)
+        if not (self.protects(site) and self.policy.abft):
+            return out, None, None
+        state = None if self.dispatch == "plain" else self.state
+        chk_row, chk_col = abft_checksums(x, w, state, cfg=self.hyca, plan=self._plan_for(site), wc=wc)
+        return out, chk_row, chk_col
 
     def einsum(self, spec: str, x: torch.Tensor, w: torch.Tensor, *, site: str) -> torch.Tensor:
         """Batched-weight einsum through the protected array: the MoE expert
@@ -346,8 +368,6 @@ def build_ftcontext(
     if fused_block is not None or autotune_shapes:
         raise NotImplementedError("kernel-block autotuning comes with the kernel-tier slice")
     policy = policy or ProtectPolicy()
-    if policy.abft:
-        raise NotImplementedError("ABFT checksum lanes come with the transients slice")
     if state is not None:
         validate_fault_state(state, hyca.rows, hyca.cols)
     if plan is not None:

@@ -112,6 +112,44 @@ def corrupt_probe(out: torch.Tensor, fault_map: torch.Tensor, stuck_bit: torch.T
     return torch.where(fault_map, bad, out)
 
 
+# --------------------------------------------------------------------------- #
+# float-tolerant output check (the OnlineVerifier adapter path)
+# --------------------------------------------------------------------------- #
+def output_block_check(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    out: torch.Tensor,
+    *,
+    row0: int,
+    row1: int,
+    n_cols: int,
+    window: int,
+    rtol: float,
+) -> np.ndarray:
+    """AR == BAR + PR over an *output* row-block (rows [row0, row1), columns
+    [0, n_cols)): the DPPU lanes recompute the window-long partial result PR
+    and the tail BAR and compare against the array's accumulator AR, on the
+    tensors' device.  Integer dtypes recompute in the int32 accumulator
+    (wrapping) and compare exactly; float dtypes use ``rtol``.  Returns a
+    (row1-row0, n_cols) bool mismatch mask on the host."""
+    kwin = min(window, x.shape[1])
+    exact = not out.dtype.is_floating_point
+    xs, ws = x[row0:row1], w[:, :n_cols]
+    ar = out[row0:row1, :n_cols]
+    if exact:
+        pr = _int_matmul(xs[:, :kwin], ws[:kwin])
+        bar = _int_matmul(xs[:, kwin:], ws[kwin:])
+        expect = (pr.to(torch.int64) + bar).to(torch.int32)
+        bad = ar.to(torch.int32) != expect
+    else:
+        xs, ws, ar = xs.to(torch.float32), ws.to(torch.float32), ar.to(torch.float32)
+        expect = xs[:, :kwin] @ ws[:kwin] + xs[:, kwin:] @ ws[kwin:]
+        # negated <=, not >: a corrupted accumulator can be NaN (a stuck bit
+        # in the exponent), and NaN must flag as a mismatch
+        bad = ~((ar - expect).abs() <= rtol * (1.0 + expect.abs()))
+    return bad.cpu().numpy()
+
+
 @dataclasses.dataclass(frozen=True)
 class ScanEngine:
     """Batched DPPU scan pipeline over one rows×cols virtual PE array on
@@ -128,6 +166,9 @@ class ScanEngine:
 
     def confirmed(self, state: ScanState) -> torch.Tensor:
         return state.hits >= self.cfg.confirm_hits
+
+    def suspect(self, state: ScanState) -> torch.Tensor:
+        return (state.hits >= 1) & ~self.confirmed(state)
 
     # -- one probe step: a whole row-block of the grid --------------------- #
     def probe_block(self, state: ScanState, px, pw, ar, ar_neg) -> tuple[ScanState, torch.Tensor, int]:

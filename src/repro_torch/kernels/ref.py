@@ -10,12 +10,11 @@ Each oracle is built on the plain twin of its kernel (one plain version per
 function): :func:`os_array_matmul_ref` is ``os_array_matmul_plain``,
 :func:`dppu_recompute_ref` is ``dppu_recompute_plain`` followed by
 ``scatter_overwrite``, and :func:`corrupt_f32` is the engine's stuck-at.
-
-The ABFT syndrome oracle (``abft_syndromes_ref``) comes with the transients
-slice.
+:func:`abft_syndromes_ref` is the host float64 oracle of the ABFT syndromes.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.engine import _corrupt_elems
@@ -51,3 +50,30 @@ def ft_matmul_ref(x, w, pe_bit, pe_val, pe_faulty, pe_repaired, *, bm: int, bn: 
         ei, ej = _tile_grids(out.shape[0], out.shape[1], 1, 1, rows, cols, out.device)
         out = torch.where(pe_prune[ei, ej], torch.zeros_like(out), out)
     return out
+
+
+def _f64(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", torch.float64).numpy()
+    return np.asarray(a, np.float64)
+
+
+def abft_syndromes_ref(x, w, out, wc=None):
+    """Host float64 ABFT syndrome oracle (numpy): what the carried checksum
+    lanes should disagree with ``out`` by.  Returns ``(col_syndrome (N,),
+    row_syndrome (M,) | None)``:
+
+        col_syndrome = colsum(x) @ w - out.sum(rows)
+        row_syndrome = x @ wc        - out.sum(cols)   (wc: encode-time)
+
+    Everything is widened to f64 before any reduction, so for the int32 and
+    f32 datapaths the oracle is exact up to 2^53.  Takes tensors on any
+    device or numpy arrays."""
+    x64, w64, o64 = _f64(x), _f64(w), _f64(out)
+    x64 = x64.reshape(-1, x64.shape[-1])
+    o64 = o64.reshape(-1, o64.shape[-1])
+    col = x64.sum(axis=0) @ w64 - o64.sum(axis=0)
+    row = None
+    if wc is not None:
+        row = x64 @ _f64(wc).reshape(-1) - o64.sum(axis=-1)
+    return col, row

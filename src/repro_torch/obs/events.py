@@ -18,6 +18,8 @@ The log is the source of truth for the runtime's latency questions:
     ``repair.plan`` swap that covers it (:func:`repair_records`).
   * **scan coverage** — ``scan.sweep`` events mark each completed
     whole-array sweep.
+  * **transient detection** — per SEU flip, injection to the first
+    ``abft.alarm`` (:func:`transient_records`).
 
 Serialization is JSONL (one event per line); ``python -m
 repro_torch.obs.schema`` validates emitted files against the event schema.
@@ -159,6 +161,30 @@ def repair_records(log: EventLog) -> list[dict]:
                 "plan_step": later[0],
                 "latency": later[0] - e.step,
             })
+    return records
+
+
+def transient_records(log: EventLog) -> list[dict]:
+    """Per-flip detection timeline for SEU injections: each
+    ``transient.flip`` paired with the first ``abft.alarm`` at or after its
+    injection step (the injector keys every flip by (step, site, index, bit)
+    at emit time, :func:`repro_torch.transient.seu.emit_flip_events`).
+    ``latency`` is None for flips never alarmed or injected at an unknown
+    step."""
+    alarm_steps = sorted(
+        e.step for e in log.of_kind("abft.alarm") if e.step is not None
+    )
+    records = []
+    for e in log.of_kind("transient.flip"):
+        later = [s for s in alarm_steps if e.step is not None and s >= e.step]
+        records.append({
+            "site": e.data["site"],
+            "index": e.data["index"],
+            "bit": e.data["bit"],
+            "injected_step": e.step,
+            "detected_step": later[0] if later else None,
+            "latency": (later[0] - e.step) if later else None,
+        })
     return records
 
 

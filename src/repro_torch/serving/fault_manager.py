@@ -23,7 +23,10 @@ Two actors, deliberately separated:
     columns) or RETIRED with its column region, which the manager publishes
     as ``capacity_fraction``.
 
-The ABFT canary comes with the transients slice.
+With ``FaultManagerConfig.abft`` each scan step also runs the ABFT canary
+(:meth:`FaultManager.abft_check`): the probe matmul's checksum pair over the
+whole array, host numpy, exact int32 syndromes, ``abft.alarm`` on any
+non-zero one.
 """
 from __future__ import annotations
 
@@ -154,7 +157,10 @@ class FaultManagerConfig:
     # to max_remap_fraction of the columns
     remap: bool = False
     max_remap_fraction: float = 0.5
-    abft: bool = False         # ABFT canary: comes with the transients slice
+    # ABFT canary: carry the checksum pair beside each probe matmul and
+    # alarm on non-zero syndromes (exact: the probe datapath is int32) —
+    # whole-array, step-granular, including rows the cursor meets next sweep
+    abft: bool = False
 
 
 class FaultManager:
@@ -168,8 +174,6 @@ class FaultManager:
         self.hyca = hyca
         self.injector = injector
         self.cfg = cfg or FaultManagerConfig()
-        if self.cfg.abft:
-            raise NotImplementedError("the ABFT canary comes with the transients slice")
         self.device = torch.device(device)
         self.engine = build_scan_engine(
             hyca.rows, hyca.cols,
@@ -187,6 +191,7 @@ class FaultManager:
         self.scans = 0
         self.repairs = 0
         self.remaps = 0
+        self.abft_alarms = 0
         # optional EventLog (shared with the injector): lifecycle transitions
         # and sweep completions are emitted here, one event per (label, PE)
         self.log = None
@@ -325,7 +330,44 @@ class FaultManager:
             self._reassign_repair()
 
     def abft_check(self) -> bool:
-        raise NotImplementedError("the ABFT canary comes with the transients slice")
+        """ABFT canary over the whole probe matmul: carry the checksum pair
+        beside the sweep's probe computation and compare against the array's
+        actual accumulators.  The probe datapath is int32 with small
+        operands, so both syndromes are exact: zero means the whole array's
+        probe output is sum-consistent this step, non-zero means real
+        corruption, including faults in row blocks the cursor will not visit
+        for another ``steps_per_sweep`` steps.
+
+        The lanes ride the augmented view as in
+        :func:`repro_torch.core.engine.abft_checksums`: the appended row lands
+        on PE row ``rows % rows == 0`` and the appended column on PE col
+        ``cols % cols == 0``, so the truth grids of PE row/column 0 corrupt
+        them.  Host numpy, outside any captured graph.  Returns True and
+        emits ``abft.alarm`` when any syndrome is non-zero."""
+        inj = self.injector
+        px, pw = inj.probe_operands(self.scan_state.sweep, self.cfg.probe_window)
+        ar = inj.corrupted_probe(px, pw).astype(np.int64)
+
+        def stuck(v, sl_r, sl_c):
+            mask = (np.int32(1) << inj.stuck_bit[sl_r, sl_c]).astype(np.int32)
+            bad = np.where(inj.stuck_val[sl_r, sl_c] > 0, v | mask, v & ~mask)
+            return np.where(inj.fault_map[sl_r, sl_c], bad, v).astype(np.int32)
+
+        chk_row = (px.sum(axis=0).astype(np.int64) @ pw.astype(np.int64)).astype(np.int32)
+        chk_col = (px.astype(np.int64) @ pw.sum(axis=1).astype(np.int64)).astype(np.int32)
+        chk_row = stuck(chk_row, 0, slice(None))
+        chk_col = stuck(chk_col, slice(None), 0)
+        syn_col = chk_row.astype(np.int64) - ar.sum(axis=0)
+        syn_row = chk_col.astype(np.int64) - ar.sum(axis=1)
+        n_flagged = int((syn_col != 0).sum() + (syn_row != 0).sum())
+        if n_flagged == 0:
+            return False
+        self.abft_alarms += 1
+        self._emit(
+            "abft.alarm", site="probe", n_flagged=n_flagged,
+            syndrome_max=int(max(np.abs(syn_col).max(), np.abs(syn_row).max())),
+        )
+        return True
 
     def scan_step(self) -> tuple[bool, tuple[int, int]]:
         """One batched probe step (call once per decode step): checks
@@ -348,6 +390,8 @@ class FaultManager:
         self.scans += 1
         if self.scan_state.sweep > sweep:
             self._emit("scan.sweep", sweep=sweep, steps=self.engine.cfg.steps_per_sweep)
+        if self.cfg.abft:
+            self.abft_check()
         self._sync()
         return not bool(flags.any()), (r0, r0 + block)
 

@@ -49,8 +49,12 @@ so the captured step serves it without a recapture.  ``counters`` adds one
 device add a step (one graph node) of an increment rewritten per swap;
 ``series`` records one telemetry row a step with one asynchronous copy.
 
-Not in this slice (they raise ``NotImplementedError``): ``repair="retrain"``
-(the training slice) and the ``abft`` canary (the transients slice).
+``abft`` adds the fault manager's ABFT canary to every scan step: host
+numpy beside the probe, outside the captured graph, so it never recaptures
+and moves no served bit.
+
+Not in this slice (it raises ``NotImplementedError``): ``repair="retrain"``
+(the training slice).
 """
 from __future__ import annotations
 
@@ -107,7 +111,7 @@ class ServerConfig:
     counters: bool = False         # device counters, one add a step
     series: bool = False           # one telemetry row a step into a device ring
     series_capacity: int = 4096    # ring depth: the last N steps are resident
-    abft: bool = False             # ABFT canary: transients slice
+    abft: bool = False             # ABFT canary on every scan step (host, beside the probe)
     seed: int = 0
     device: str = "cuda"           # where params, cache and kernels live
 
@@ -253,8 +257,6 @@ class ModelBundle:
     share one bundle, and each captures once."""
 
     def __init__(self, cfg: ServerConfig, lm: LMConfig | None = None, params: Params | None = None):
-        if cfg.abft:
-            raise NotImplementedError("the abft canary comes with the transients slice")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.lm = lm or get_smoke_config(cfg.arch)
@@ -408,6 +410,7 @@ class FaultTolerantServer:
             FaultManagerConfig(
                 confirm_hits=cfg.confirm_hits, scan_block=cfg.scan_block,
                 remap=cfg.repair != "none", max_remap_fraction=cfg.max_remap_fraction,
+                abft=cfg.abft,
             ),
             device=self.device,
         )

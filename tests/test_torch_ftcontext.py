@@ -130,10 +130,17 @@ def test_site_policy_and_validation():
         TF.build_ftcontext(bad, tftc.hyca)
     with pytest.raises(ValueError, match="expert-matmul patterns"):
         tftc.einsum("bd,df->bf", None, None, site="moe.expert")
-    for call in (lambda: tftc.abft_matmul(None, None, site="ffn"),
-                 lambda: TF.build_ftcontext(None, tftc.hyca, fused_block=(8, 128, 128))):
-        with pytest.raises(NotImplementedError):
-            call()
+    # the ABFT lanes are ported: without policy.abft the call is matmul's
+    # and carries no lanes, with it both lanes come back
+    x, w = _int_operands((3, 12), 10)
+    x, w = torch.from_numpy(x), torch.from_numpy(w)
+    out, chk_row, chk_col = tftc.abft_matmul(x, w, site="ffn")
+    assert chk_row is None and chk_col is None and torch.equal(out, tftc.matmul(x, w, site="ffn"))
+    lanes = TF.build_ftcontext(tftc.state, tftc.hyca, policy=TF.ProtectPolicy(abft=True), dispatch="fused")
+    out, chk_row, chk_col = lanes.abft_matmul(x, w, site="ffn", wc=TE.abft_encode(w))
+    assert chk_row.shape == (1, 10) and chk_col.shape == (3, 1)
+    with pytest.raises(NotImplementedError):
+        TF.build_ftcontext(None, tftc.hyca, fused_block=(8, 128, 128))
     with pytest.raises(ValueError, match="needs counters"):
         tftc.accumulate()
     with pytest.raises(ValueError, match="call ledger"):

@@ -42,6 +42,7 @@ def test_port_imports_with_jax_and_reference_package_blocked():
         "import repro_torch.repair, repro_torch.obs, repro_torch.obs.counters, repro_torch.obs.series\n"
         "import repro_torch.obs.schema, repro_torch.obs.trace, repro_torch.obs.replay\n"
         "import repro_torch.obs.export, repro_torch.obs.httpd\n"
+        "import repro_torch.transient, repro_torch.runtime, repro_torch.core.detection\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )
@@ -80,13 +81,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert torch.equal(torch.cat(flags), probe_check_ref(px, pw, ar, window=8))
     assert int(state.hits.sum()) == 1 and int(state.hits[1, 2]) == 1
     assert probe_check.launches == before
-    with pytest.raises(NotImplementedError, match="transients"):
-        ModelBundle(ServerConfig(device="cpu", abft=True))
+    # the ABFT canary is ported: its constructors work on the CPU
+    assert ModelBundle(ServerConfig(device="cpu", abft=True)).device.type == "cpu"
     with pytest.raises(NotImplementedError, match="training slice"):
         FaultTolerantServer(ServerConfig(device="cpu", repair="retrain"))
-    with pytest.raises(NotImplementedError, match="transients"):
-        FaultManager(ServerConfig(device="cpu").hyca(), FaultInjector(8, 8),
-                     FaultManagerConfig(abft=True), device="cpu")
+    mgr = FaultManager(ServerConfig(device="cpu").hyca(), FaultInjector(8, 8),
+                       FaultManagerConfig(abft=True), device="cpu")
+    assert mgr.cfg.abft and mgr.abft_check() is False and mgr.abft_alarms == 0
 
 
 def test_every_entry_point_defaults_to_cuda():
@@ -94,12 +95,15 @@ def test_every_entry_point_defaults_to_cuda():
     only a caller who asks gets the plain versions on the CPU."""
     import inspect
 
+    from repro_torch.core.detection import scan_array, scans_to_full_detection
     from repro_torch.core.scan import ScanConfig, ScanEngine, build_scan_engine
     from repro_torch.serving import FaultManager, ServerConfig
+    from repro_torch.transient.coverage import build_program, run_class, run_coverage
 
     assert ServerConfig().device == "cuda"
-    assert inspect.signature(FaultManager).parameters["device"].default == "cuda"
-    assert inspect.signature(build_scan_engine).parameters["device"].default == "cuda"
+    for entry in (FaultManager, build_scan_engine, scan_array, scans_to_full_detection,
+                  run_coverage, run_class, build_program):
+        assert inspect.signature(entry).parameters["device"].default == "cuda", entry
     assert ScanEngine(ScanConfig(rows=4, cols=4, window=8, block_rows=1, confirm_hits=2)).device == "cuda"
 
 
