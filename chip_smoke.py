@@ -106,6 +106,34 @@ Phases, each printed on its own line; any failure exits non-zero:
      unprotected ft_matmul output at qwen's up shape flags exactly the
      faulty PE, nothing fault-free, and scan_array on the paper's 32 x 32
      array has no false positive or negative.
+  10. the training and prefill slice.  prefill_kernels: ft_matmul and
+     ft_matmul_batched against their plain versions at the fused prefill's
+     shapes (M = 2048; the experts 48 x 512 rows), as in 3 and 4.  On
+     qwen1.5-0.5b before it is freed: serve_retrain — repair="retrain" with
+     the six faults of serve_remap at step 2, where the hook plans the remap
+     and fine-tunes this server's f32 masters (4 steps, twopass) and its
+     step recaptures once over its own working copies: 4 slots, quality
+     0.75, captured equal to eager bit for bit, the main path's launches a
+     step, the retrain seconds, and a sibling on the same bundle serving
+     the protected scenario bitwise as before with one capture;
+     train_step — launch/train.py's step at the reference CLI's defaults
+     (batch 8, seq 128, 2 microbatches, lr 1e-3, 4 seeded faults on the
+     32 x 32 array, twopass, remat on), in deterministic mode with TF32
+     off: 5 steps with finite losses and gnorm > 0, the params after 2
+     steps bitwise those with an empty fault table, different unprotected,
+     every frozen leaf bit for bit under a grad mask of ("ffn",), a fused
+     train step refused (C5), the step ms, peak memory and device busy
+     share; checkpoint — that state after 2 steps saved (one .npy a leaf,
+     sha256 digests) and restored bit for bit, 2 more steps from it bitwise
+     the straight run's 4, a tampered checkpoint re-fetched from a pristine
+     copy and then refused without one, with memory_fault_records of both.
+     Each model at the end: prefill_fused — forward(last_only=True) on 4 x
+     512 tokens under fused: off, protected with the 3 BIST faults (bitwise
+     off), unprotected (differs), twopass within TWOPASS_PREFILL_TOL of
+     fused; ft_matmul 169 (granite 161, ft_matmul_batched 96) launches a
+     prefill, counted from 0 just before the protected prefill; the
+     prefill's ms and per prefill shape the kernels' times beside the
+     library call and the bound.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -922,12 +950,12 @@ def _time_shape(kernel, plain, library, x, ws, and_g, or_g):
     return t, (c_k, c_p, c_l), "profiler" if use_dev else "events"
 
 
-def timing_phase(dev, smi: str, arch: str, runs) -> dict[str, dict]:
-    """Kernel, plain and library times per main-path shape of ``arch``,
-    and the per-decode-step totals of each of its matmul kernels.  ``ms`` is
-    the device time from the profiler where it reports one (else the
-    per-call time); ``call_ms`` is the time per call as a Python loop sees
-    it.  Returns {kernel: per-step totals}."""
+def time_kernel_shapes(dev, smi: str, arch: str, mm_shapes, expert_shapes, where: str) -> dict[str, dict]:
+    """Kernel, plain and library times per shape of ``arch``'s path
+    ``where`` (``decode_step`` or ``prefill``), and each matmul kernel's
+    totals per ``where``.  ``ms`` is the device time from the profiler
+    where it reports one (else the per-call time); ``call_ms`` is the time
+    per call as a Python loop sees it.  Returns {kernel: totals}."""
     from repro_torch.kernels import ft_matmul as FM
 
     # the call the serving path makes: bf16 operands, the kernel's bf16 store
@@ -937,8 +965,9 @@ def timing_phase(dev, smi: str, arch: str, runs) -> dict[str, dict]:
     g = torch.Generator(device=dev).manual_seed(1)
     and_g, or_g = fault_grids(dev)
     totals = {}
+    suffix = "" if where == "decode_step" else f"_{where}"
     launches0 = {name: k.launches for name, k in _kernels().items()}
-    for kname, shapes in (("ft_matmul", DECODE_SHAPES[arch]), ("ft_matmul_batched", EXPERT_SHAPES[arch])):
+    for kname, shapes in (("ft_matmul", mm_shapes), ("ft_matmul_batched", expert_shapes)):
         if not shapes:
             continue
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, call_ms=0.0)
@@ -969,7 +998,7 @@ def timing_phase(dev, smi: str, arch: str, runs) -> dict[str, dict]:
             # bf16 x and w read once, the bf16 output written once, the mask pair
             nbytes = 2 * e * m * k + w_bytes + 2 * e * m * n + 2 * 4 * ROWS * COLS
             b, by = bound_ms(nbytes, 2 * e * m * n * k, torch.bfloat16)
-            phase(f"time_{kname}", arch=arch, shape=name, E=e, M=m, K=k, N=n, launches_per_step=per,
+            phase(f"time_{kname}{suffix}", arch=arch, shape=name, E=e, M=m, K=k, N=n, **{f"launches_per_{where}": per},
                   plan=_plan_str(FM.plan_of(x, ws[0])), out_dtype="bf16",
                   ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b, bound_by=by,
                   bound_share=b / t_k, tflops=tflops(2 * e * m * n * k, t_k), call_ms=c_k, plain_call_ms=c_p,
@@ -977,12 +1006,19 @@ def timing_phase(dev, smi: str, arch: str, runs) -> dict[str, dict]:
             for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b), ("call_ms", c_k)):
                 tot[key] += per * v
             del ws
-        totals[kname] = dict(tot, launches_per_step=sum(s[-1] for s in shapes))
-        phase(f"time_{kname}_per_decode_step", arch=arch, **totals[kname], card=smi)
+        totals[kname] = dict(tot, **{f"launches_per_{where}": sum(s[-1] for s in shapes)})
+        phase(f"time_{kname}_per_{where}", arch=arch, **totals[kname], card=smi)
     # timing launches are not main-path launches
     for name, k in _kernels().items():
         k.launches = launches0[name]
+    return totals
 
+
+def timing_phase(dev, smi: str, arch: str, runs) -> dict[str, dict]:
+    """Kernel, plain and library times per decode shape of ``arch``
+    (:func:`time_kernel_shapes`), then the captured protected decode step's
+    time.  Returns {kernel: per-step totals}."""
+    totals = time_kernel_shapes(dev, smi, arch, DECODE_SHAPES[arch], EXPERT_SHAPES[arch], "decode_step")
     prot = runs["protected"]
     ms, tps = _steady(prot)
     phase("time_decode_step", arch=arch, mode="protected", step="captured", steps=len(prot["times"]),
@@ -1792,16 +1828,426 @@ def transients_phase(dev, smi, bundle) -> None:
     verify_phase(dev, smi, bundle)
 
 
+# --------------------------------------------------------------------------- #
+# the training and prefill slice: the sequence forward, the loss, AdamW, the
+# train step, checkpoints and the retrain repair
+# --------------------------------------------------------------------------- #
+PREFILL_B, PREFILL_S = 4, 512
+# (name, M, K, N, launches per prefill) of each model's ft_matmul calls in the
+# fused prefill: M = B·S, the head at M = B (last_only)
+PREFILL_SHAPES = {
+    QWEN: (
+        ("qkv_2048x1024x1024", 2048, 1024, 1024, 24 * 3),
+        ("out_2048x1024x1024", 2048, 1024, 1024, 24),
+        ("up_gate_2048x1024x2816", 2048, 1024, 2816, 24 * 2),
+        ("down_2048x2816x1024", 2048, 2816, 1024, 24),
+        ("head_4x1024x152064", 4, 1024, 152064, 1),
+    ),
+    GRANITE: (
+        ("q_out_2048x1536x1536", 2048, 1536, 1536, 32 * 2),
+        ("kv_2048x1536x512", 2048, 1536, 512, 32 * 2),
+        ("router_2048x1536x48", 2048, 1536, 48, 32),
+        ("head_4x1536x49408", 4, 1536, 49408, 1),
+    ),
+}
+# (name, E, M, K, N, launches per prefill) of ft_matmul_batched: M = B x the
+# expert capacity, int(1.25 * top_k * S / n_experts) = 128 slots
+PREFILL_EXPERT_SHAPES = {
+    QWEN: (),
+    GRANITE: (
+        ("gate_up_48x512x1536x512", 48, 512, 1536, 512, 32 * 2),
+        ("down_48x512x512x1536", 48, 512, 512, 1536, 32),
+    ),
+}
+BIST_FAULTS = [(0, 1, 30, 1), (2, 3, 31, 0), (3, 6, 20, 1)]  # 3 <= the DPPU's 4
+# fused against twopass, last-position logits of a full-width bf16 prefill:
+# the two accumulate each product in another order, both store bf16, and the
+# one-ulp differences pass through every layer; a wrong kernel is off by the
+# logits' own size
+TWOPASS_PREFILL_TOL = 2.0**-3  # of max |logit|
+
+
+def prefill_kernel_checks(dev) -> dict[str, float]:
+    """``ft_matmul`` and ``ft_matmul_batched`` against their plain versions
+    at the fused prefill's shapes (M = B·S = 2048, the experts at M = 512;
+    the heads at M = 4 are the decode step's), bf16 and f32, as
+    :func:`_kernel_checks` holds them at the decode shapes.  Returns each
+    kernel's max |kernel - plain| on random operands."""
+    from repro_torch.kernels.ft_matmul import (
+        ft_matmul, ft_matmul_batched, ft_matmul_batched_ref, ft_matmul_ref, plan_of,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    and_g, or_g = fault_grids(dev)
+    launches0 = {name: k.launches for name, k in _kernels().items()}
+    errs, plans, max_abs = {}, {}, {"ft_matmul": 0.0, "ft_matmul_batched": 0.0}
+    for name, m, k, n in [s[:4] for a in (QWEN, GRANITE) for s in PREFILL_SHAPES[a] if not s[0].startswith("head")]:
+        for dtype in (torch.bfloat16, torch.float32):
+            def operands(kind: str):
+                return (_draw(g, dev, dtype, kind, (m, k), 1.0, kind == "frac_x"),
+                        _draw(g, dev, dtype, kind, (k, n), 0.02, kind == "frac_w"))
+            err, errs[f"{name} {str(dtype)[6:]}"] = _kernel_checks(f"ft_matmul {name}", ft_matmul, ft_matmul_ref,
+                                                                   operands, and_g, or_g, dtype)
+            max_abs["ft_matmul"] = max(max_abs["ft_matmul"], err)
+            plans[name] = _plan_str(plan_of(*operands("integer")))
+    for name, e, m, k, n, _ in PREFILL_EXPERT_SHAPES[GRANITE]:
+        for dtype in (torch.bfloat16, torch.float32):
+            def operands(kind: str):
+                # the (b, e, c, d) dispatch layout, copied to (e, b·c, d) as FTContext.einsum does
+                x = _draw(g, dev, dtype, kind, (PREFILL_B, e, m // PREFILL_B, k), 1.0, kind == "frac_x")
+                return (x.transpose(0, 1).reshape(e, m, k),
+                        _draw(g, dev, dtype, kind, (e, k, n), 0.02, kind == "frac_w"))
+            err, errs[f"{name} {str(dtype)[6:]}"] = _kernel_checks(
+                f"ft_matmul_batched {name}", ft_matmul_batched, ft_matmul_batched_ref, operands, and_g, or_g, dtype)
+            max_abs["ft_matmul_batched"] = max(max_abs["ft_matmul_batched"], err)
+            plans[name] = _plan_str(plan_of(*operands("integer")))
+    for name, k in _kernels().items():  # checks, not main-path launches
+        k.launches = launches0[name]
+    phase("prefill_kernels", shapes=sorted(plans), plans=plans, dtypes=["bf16", "f32"],
+          bitwise=["integer", "f32 frac_x", "f32 frac_w", "bf16 store = f32 cast", "repeat call"],
+          random_tol=f"{RAND_TOL}*(|x|@|w|)", max_abs_err=max_abs, max_err_over_scale=errs)
+    return max_abs
+
+
+def _prefill_ctx(mode: str, faults, dispatch: str, dev):
+    from repro_torch.core.engine import HyCAConfig
+    from repro_torch.core.ftcontext import build_ftcontext
+    from repro_torch.core.redundancy import DPPUConfig
+
+    hyca = HyCAConfig(rows=ROWS, cols=COLS, dppu=DPPUConfig(size=4, group_size=4), mode=mode)
+    return build_ftcontext(_fault_state(faults, dev), hyca, dispatch=dispatch)
+
+
+def prefill_phase(dev, smi: str, bundle) -> dict[str, dict]:
+    """The fused prefill at full width: ``forward(last_only=True)`` on B =
+    4 sequences of S = 512 tokens through ``FTContext`` under ``fused``, the
+    reference's production prefill.  Off (the fault-free array through the
+    same kernels), protected with the 3 BIST faults (bitwise off),
+    unprotected with a stuck-at-1 on bit 30 of PE(0, 0) (differs from off),
+    and the twopass engine on the BIST faults (within TWOPASS_PREFILL_TOL
+    of fused).  ``ft_matmul`` and ``ft_matmul_batched`` launch the main
+    path's count a prefill (counted from 0 just before the protected
+    prefill, read just after); then the kernels at these shapes against
+    their plain versions and their times against the library call and the
+    bound.  Returns {kernel: per-prefill totals, with its launches}."""
+    from repro_torch.models.lm import forward
+
+    lm, arch = bundle.lm, bundle.lm.name
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(0, lm.vocab, (PREFILL_B, PREFILL_S), generator=g, device=dev)
+    kernels = _kernels()
+
+    def prefill(ctx):
+        with torch.no_grad():
+            logits, _ = forward(bundle.work, lm, {"tokens": tokens}, ftc=ctx, last_only=True)
+        torch.cuda.synchronize()
+        return logits
+
+    ctxs = {"off": _prefill_ctx("protected", [], "fused", dev),
+            "protected": _prefill_ctx("protected", BIST_FAULTS, "fused", dev),
+            "unprotected": _prefill_ctx("unprotected", [(0, 0, 30, 1)], "fused", dev)}
+    prefill(ctxs["off"])  # warm-up
+    out, ms = {}, {}
+    for mode, ctx in ctxs.items():
+        for k in kernels.values():
+            k.launches = 0
+        t1 = time.perf_counter()
+        out[mode] = prefill(ctx)
+        ms[mode] = 1e3 * (time.perf_counter() - t1)
+        counts = {name: k.launches for name, k in kernels.items()}
+        if mode == "protected":
+            launches = counts
+        want = {"ft_matmul": sum(s[-1] for s in PREFILL_SHAPES[arch]),
+                "ft_matmul_batched": sum(s[-1] for s in PREFILL_EXPERT_SHAPES[arch])}
+        check(all(counts[n] == c for n, c in want.items()) and counts["probe_check_pair"] == 0,
+              f"{arch} prefill {mode}: launched {counts}, want {want}")
+    times = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        prefill(ctxs["protected"])
+        times.append(1e3 * (time.perf_counter() - t1))
+    off, prot, unprot = out["off"], out["protected"], out["unprotected"]
+    check(tuple(off.shape) == (PREFILL_B, 1, lm.padded_vocab) and off.dtype == lm.dtype,
+          f"{arch} prefill: logits {tuple(off.shape)} {off.dtype}")
+    check(bool(torch.isfinite(off[..., :lm.vocab].float()).all()), f"{arch} prefill off: non-finite logits")
+    check(torch.equal(off.view(torch.int16), prot.view(torch.int16)), f"{arch} prefill: protected differs from off")
+    check(not torch.equal(off.view(torch.int16), unprot.view(torch.int16)), f"{arch} prefill: unprotected equals off")
+    t1 = time.perf_counter()
+    twopass = prefill(_prefill_ctx("protected", BIST_FAULTS, "twopass", dev))
+    twopass_ms = 1e3 * (time.perf_counter() - t1)
+    a, b = prot[..., :lm.vocab].float(), twopass[..., :lm.vocab].float()
+    rel = float((a - b).abs().max()) / float(a.abs().max())
+    check(rel <= TWOPASS_PREFILL_TOL, f"{arch} prefill: fused vs twopass {rel} of max |logit| > {TWOPASS_PREFILL_TOL}")
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    totals = time_kernel_shapes(dev, smi, arch, PREFILL_SHAPES[arch], PREFILL_EXPERT_SHAPES[arch], "prefill")
+    for name, t in totals.items():
+        t["launches"] = launches[name]
+    phase("prefill_fused", arch=arch, batch=PREFILL_B, seq=PREFILL_S, last_only=True, launches=launches,
+          protected_equals_off=True, unprotected_differs=True, fused_vs_twopass_over_max_logit=rel,
+          fused_vs_twopass_tol=TWOPASS_PREFILL_TOL, fused_twopass_argmax_agree=agree,
+          prefill_ms={**ms, "protected_runs": times, "twopass": twopass_ms},
+          kernel_ms_per_prefill={k: v["ms"] for k, v in totals.items()},
+          library_ms_per_prefill={k: v["library_ms"] for k, v in totals.items()},
+          bound_ms_per_prefill={k: v["bound_ms"] for k, v in totals.items()},
+          phase_s=time.perf_counter() - t0, card=smi)
+    return totals
+
+
+# qwen1.5-0.5b training at the reference CLI's defaults: batch 8, seq 128,
+# 2 microbatches, lr 1e-3, the 32x32 array with 4 seeded faults, twopass
+TRAIN = dict(batch=8, seq=128, n_micro=2, lr=1e-3, faults=4, steps=5, seed=0)
+
+
+class deterministic:
+    """``torch.use_deterministic_algorithms(True)`` for the block, with the
+    cuBLAS workspace setting it requires, restored after it."""
+
+    def __enter__(self):
+        self.env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(False)
+        if self.env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = self.env
+
+
+def _trees_equal(a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def train_phase(dev, smi: str, bundle) -> dict:
+    """qwen1.5-0.5b's train step at full width (``launch/train.py``, the
+    bundle's f32 masters as the params) at the reference CLI's defaults,
+    protected under ``twopass`` with 4 seeded faults on the 32x32 array, in
+    deterministic mode with TF32 off: 5 steps (finite losses, gnorm > 0),
+    the params after 2 steps bitwise those of a run with an empty fault
+    table, different under ``unprotected``, every frozen leaf bit for bit
+    under a grad mask of ``("ffn",)``; the step ms, the peak memory, the
+    device busy share of one profiled step; a fused train step refused (C5).
+    Returns the states after 2 and 4 steps, the step and the data."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.engine import HyCAConfig, empty_fault_state
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as T
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.repair.retrain import RetrainConfig, grad_mask
+    from repro_torch.tree import map_with_path, tree_leaves
+
+    t0 = time.perf_counter()
+    lm = bundle.lm
+    tc = T.TrainConfig(n_micro=TRAIN["n_micro"], opt=AdamWConfig(lr=TRAIN["lr"]), total_steps=TRAIN["steps"],
+                       warmup=max(1, TRAIN["steps"] // 10), hyca_mode="protected", hyca_dispatch="twopass")
+    hyca = HyCAConfig(rows=32, cols=32, mode="protected")
+    check(TRAIN["faults"] <= hyca.capacity, f"{TRAIN['faults']} faults past the DPPU's {hyca.capacity}")
+    faults = T.cli_fault_state(TRAIN["faults"], TRAIN["seed"], device=dev)
+    data = SyntheticLM(DataConfig(seed=TRAIN["seed"], batch=TRAIN["batch"], seq_len=TRAIN["seq"]), lm)
+    batches = [T.batch_to(data.batch(i), dev) for i in range(TRAIN["steps"])]
+    start = {"params": bundle.params, "opt": adamw_init(bundle.params)}
+
+    def run(step_fn, fstate, n, keep=()):
+        """``n`` steps from ``start``: (the states after the steps of
+        ``keep`` and the last, their metrics, their ms, one step's peak
+        bytes).  Only those states are kept: each holds 5.6 GB."""
+        state, kept, metrics, times, peak = start, {}, [], [], None
+        for i in range(n):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats(dev)
+            t1 = time.perf_counter()
+            state, m = step_fn(state, batches[i], fstate)
+            metrics.append({k: float(v) for k, v in m.items()})  # the host reads them: the step has ended
+            times.append(1e3 * (time.perf_counter() - t1))
+            if i == 1:
+                peak = torch.cuda.max_memory_allocated(dev)
+            if i + 1 in keep:
+                kept[i + 1] = state
+        kept["last"] = state
+        return kept, metrics, times, peak
+
+    step = T.make_train_step(lm, tc, hyca=hyca)
+    with deterministic():
+        mem0 = torch.cuda.memory_allocated(dev)
+        states, metrics, times, peak = run(step, faults, TRAIN["steps"], keep=(2, 4))
+        losses = [m["loss"] for m in metrics]
+        check(all(np.isfinite(losses)) and all(m["gnorm"] > 0 for m in metrics),
+              f"train: losses {losses}, gnorm {[m['gnorm'] for m in metrics]}")
+        empty = run(step, empty_fault_state(TRAIN["faults"], device=dev), 2)[0]["last"]
+        check(_trees_equal(states[2]["params"], empty["params"]),
+              "train: protected (4 faults <= capacity) params after 2 steps differ from the empty fault table's")
+        del empty
+        unprot = run(T.make_train_step(lm, dataclasses.replace(tc, hyca_mode="unprotected"), hyca=hyca),
+                     faults, 2)[0]["last"]
+        check(not _trees_equal(states[2]["params"], unprot["params"]),
+              "train: unprotected params after 2 steps equal the protected ones")
+        del unprot
+        mask = grad_mask(bundle.params, RetrainConfig(trainable=("ffn",)))
+        masked = run(T.make_train_step(lm, tc, hyca=hyca, grad_mask=mask), faults, 2)[0]["last"]
+        frozen = map_with_path(lambda path, layer, t: "ffn" not in path, bundle.params)
+        pairs = list(zip(tree_leaves(frozen), tree_leaves(bundle.params), tree_leaves(masked["params"])))
+        check(all(torch.equal(a, b) for f, a, b in pairs if f) and all(not torch.equal(a, b) for f, a, b in pairs
+                                                                    if not f),
+              "train: a frozen leaf moved, or an ffn leaf did not, under grad_mask(('ffn',))")
+        del masked, pairs
+        # one step profiled: its device events' time over the unprofiled median step
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(states[2], batches[2], faults)
+            torch.cuda.synchronize()
+    busy_ms = sum(_self_device_us(e) for e in _device_events(prof.key_averages())) / 1e3
+    step_ms = float(np.median(times[1:]))
+    try:
+        T.make_train_step(lm, dataclasses.replace(tc, hyca_dispatch="fused"), hyca=hyca)
+        refused = False
+    except ValueError as e:
+        refused = "C5" in str(e)
+    check(refused, "train: a fused protected train step was not refused (C5)")
+    out = dict(arch=lm.name, layers=lm.n_layers, remat=lm.remat, dtype=str(lm.dtype)[6:], **TRAIN,
+               dispatch="twopass", array="32x32", capacity=hyca.capacity, deterministic=True,
+               tf32=torch.backends.cuda.matmul.allow_tf32, losses=losses,
+               gnorm=[m["gnorm"] for m in metrics], lr_by_step=[m["lr"] for m in metrics], step_ms=times,
+               step_ms_median=step_ms, tokens_per_s=TRAIN["batch"] * TRAIN["seq"] / (step_ms / 1e3),
+               step_peak_gib=peak / 2**30, step_peak_above_start_gib=(peak - mem0) / 2**30,
+               device_busy_ms=busy_ms,
+               device_busy_share=busy_ms / step_ms, protected_equals_empty_table=True,
+               unprotected_differs=True, grad_mask_freezes=True, fused_refused_c5=True,
+               phase_s=time.perf_counter() - t0, card=smi)
+    phase("train_step", **out)
+    return dict(states=states, step=step, faults=faults, batches=batches)
+
+
+def checkpoint_phase(dev, smi: str, train: dict) -> dict:
+    """The full-width train state after 2 steps saved and restored bit for
+    bit; 2 more steps from the restored state bitwise the straight run's 4
+    (deterministic mode); a tampered checkpoint re-fetched from a pristine
+    copy, then refused with no source; ``memory_fault_records`` of both.
+    The checkpoints live under build/ in the checkout and are removed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import store
+    from repro_torch.obs.events import EventLog, memory_fault_records
+    from repro_torch.transient import memory
+
+    t0 = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt-", dir=root)
+    try:
+        state2, state4 = train["states"][2], train["states"][4]
+        d, mirror = os.path.join(tmp, "ckpt"), os.path.join(tmp, "mirror")
+        t1 = time.perf_counter()
+        store.save(d, 2, state2, {"arch": QWEN})
+        save_s = time.perf_counter() - t1
+        nbytes = sum(os.path.getsize(os.path.join(d, "step_00000002", f)) for f in
+                     os.listdir(os.path.join(d, "step_00000002")))
+        t1 = time.perf_counter()
+        restored = store.restore(d, 2, state2, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        check(_trees_equal(state2, restored), "checkpoint: the restored state differs from the saved one")
+        with deterministic():
+            state = restored
+            for i in (2, 3):
+                state, _ = train["step"](state, train["batches"][i], train["faults"])
+        check(_trees_equal(state4, state), "checkpoint: 2 + 2 steps resumed differ from 4 straight steps")
+        manifest = store._verify(os.path.join(d, "step_00000002"))
+        shutil.copytree(d, mirror)
+        log = EventLog()
+        log.step = 2
+        rng = np.random.default_rng(0)
+        tampered = memory.tamper_checkpoint(d, 2, rng, n_leaves=2)
+        check(sorted(store.corrupt_leaves(d, 2)) == sorted(tampered), "checkpoint: the digest scan missed a leaf")
+        t1 = time.perf_counter()
+        again = memory.guarded_restore(d, 2, state2, device=dev, log=log, fetch=memory.pristine_fetcher(mirror))
+        guarded_s = time.perf_counter() - t1
+        check(_trees_equal(state2, again), "checkpoint: the re-fetched state differs from the saved one")
+        tampered2 = memory.tamper_checkpoint(d, 2, rng, n_leaves=1)
+        try:
+            memory.guarded_restore(d, 2, state2, device=dev, log=log)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, "checkpoint: a tampered checkpoint with no pristine source was not refused")
+        records = memory_fault_records(log)
+        check({r["outcome"] for r in records} == {"refetched", "refused"}, f"checkpoint: records {records}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = dict(arch=QWEN, leaves=len(manifest["leaves"]), tree_hash=manifest["tree_hash"], bytes=nbytes,
+               save_s=save_s, restore_s=restore_s, restored_bitwise=True, resumed_equals_straight=True,
+               tampered=tampered, refetched=True, guarded_restore_s=guarded_s, tampered_no_source=tampered2,
+               refused=True, memory_fault_records=records, phase_s=time.perf_counter() - t0, card=smi)
+    phase("checkpoint", **out)
+    return out
+
+
+def serve_retrain_phase(dev, smi: str, bundle, prot: dict) -> dict:
+    """``repair="retrain"`` at full width: the six faults of REMAP_FAULTS at
+    step 2, where the hook plans the remap and fine-tunes this server's f32
+    masters (4 steps, twopass, the faulty array and the plan in the
+    forward), then swaps its own working copies into its step, which
+    recaptures once.  Captured against eager bitwise; 4 slots and quality
+    0.75; the main path's launches a step; the retrain seconds; then a
+    sibling on the same bundle serves the protected scenario bitwise as it
+    did before (``prot``, from ``server_phase``), with one capture."""
+    arch = bundle.lm.name
+    t0 = time.perf_counter()
+    remap = dict(inject=tuple((REMAP_AT, f) for f in REMAP_FAULTS), bist_at=REMAP_AT, repair="retrain")
+    run = serve(bundle, "protected", bundle.lm.vocab, record_logits=True, **remap)
+    srv, steps, counts = run["server"], len(run["times"]), run["counts"]
+    events = srv.repair_events
+    check(len(events) == 1 and events[0]["retrained"] and events[0]["step"] == REMAP_AT,
+          f"{arch} retrain: repair events {events}")
+    eff = [r.effective_slots for r in srv.metrics.steps]
+    check(all(e == 4 for e in eff) and srv.manager.quality_fraction == 0.75,
+          f"{arch} retrain: effective slots {eff}, quality {srv.manager.quality_fraction}")
+    check(run["captures"] == 2 and srv.params is not bundle.work and srv.decode.params is srv.params,
+          f"{arch} retrain: {run['captures']} captures; the step must recapture once over its own params")
+    for name, n in per_step(arch).items():
+        check(counts[name] == n * steps, f"{arch} retrain: {name} launched {counts[name]} times in {steps} steps")
+    report = srv.retrain_reports[0]
+    check(all(np.isfinite(report["losses"])), f"{arch} retrain: losses {report['losses']}")
+    eager = serve(bundle, "protected", bundle.lm.vocab, record_logits=True, capture=False, **remap)
+    check(eager["tokens"].keys() == run["tokens"].keys()
+          and all(np.array_equal(eager["tokens"][r], run["tokens"][r]) for r in run["tokens"]),
+          f"{arch} retrain: the captured step's tokens differ from the eager step's")
+    check(_same_bits(run["logits"], eager["logits"]), f"{arch} retrain: captured logits differ from eager")
+    sib = serve(bundle, "protected", bundle.lm.vocab, faults=BIST_FAULTS, inject=((2, (5, 3, 30, 1)),),
+                record_logits=True)
+    check(sib["captures"] == 1 and sib["tokens"].keys() == prot["tokens"].keys()
+          and all(np.array_equal(sib["tokens"][r], prot["tokens"][r]) for r in prot["tokens"])
+          and _same_bits(sib["logits"], prot["logits"]),
+          f"{arch} retrain: a sibling on the bundle no longer serves what it served before")
+    (ms, tps) = _steady(run, skip=REMAP_AT + 2)
+    out = dict(arch=arch, steps=steps, repair_event=events[0], effective_slots=sorted(set(eff)),
+               quality_fraction=srv.manager.quality_fraction, retrain_steps=report["steps"],
+               retrain_losses=report["losses"], retrain_s=report["seconds"],
+               eager_retrain_s=eager["server"].retrain_reports[0]["seconds"], captures=run["captures"],
+               sibling_captures=sib["captures"], sibling_equals_before=True, graph_equals_eager=True,
+               launches=counts, step_ms_median_after=ms, tokens_per_s_after=tps,
+               repair_step_s=run["times"][REMAP_AT], phase_s=time.perf_counter() - t0, card=smi)
+    phase("serve_retrain", **out)
+    return out
+
+
 def main() -> None:
     smi = device_phase()
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     dev = torch.device("cuda")
     build_phase()
     err = {"ft_matmul": ft_matmul_phase(dev), "ft_matmul_batched": ft_matmul_batched_phase(dev)}
+    for name, e in prefill_kernel_checks(dev).items():
+        err[name] = max(err[name], e)
     probe_check_phase(dev)
     timed = {"probe_check": time_probe_check(dev, smi)}
     launches = dict.fromkeys(_kernels(), 0)
-    per_path = {}
+    per_path, per_prefill = {}, {}
     for arch in (QWEN, GRANITE):
         bundle, runs = server_phase(dev, smi, arch)
         for name, n in runs["protected"]["counts"].items():
@@ -1810,9 +2256,14 @@ def main() -> None:
         busy = {step: profile_phase(bundle, smi, capture=capture)["device_busy_ms"]
                 for step, capture in (("eager", False), ("captured", True))}
         steady_phase(bundle, smi, busy)
-        if arch == QWEN:  # the kernel tier and the transients slice on the served model's weights
+        if arch == QWEN:  # the kernel tier, the transients and the training slice on the served model's weights
             two_pass = two_pass_phase(dev, smi, bundle)
             transients_phase(dev, smi, bundle)
+            serve_retrain_phase(dev, smi, bundle, runs["protected"])
+            train = train_phase(dev, smi, bundle)
+            checkpoint_phase(dev, smi, train)
+            del train
+        per_prefill[arch] = prefill_phase(dev, smi, bundle)
         del bundle, runs
         gc.collect()
         torch.cuda.empty_cache()  # the next model's bundle gets the card's memory
@@ -1827,6 +2278,10 @@ def main() -> None:
         row["bound_by"] = "bytes"
         row["library_ms"] = sum(p["library_ms"] for p in paths.values())
         row["per_decode_step"] = paths
+        # the fused prefill's path: its launches and its per-prefill totals
+        prefill = {arch: t[name] for arch, t in per_prefill.items() if name in t}
+        row["launches_prefill"] = sum(p["launches"] for p in prefill.values())
+        row["per_prefill"] = prefill
         return row
 
     kernels = [

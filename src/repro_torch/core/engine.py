@@ -246,13 +246,18 @@ def _corrupt(out: torch.Tensor, pe_bit, pe_val, pe_faulty) -> torch.Tensor:
 
 def _corrupt_elems(out: torch.Tensor, bi, vi, fi) -> torch.Tensor:
     """Stuck-at ``bi`` at ``vi`` wherever ``fi``, the three given per element
-    (broadcast against ``out``)."""
+    (broadcast against ``out``).
+
+    Float outputs take the stuck-at from the float32 bit pattern, but the
+    select between it and ``out`` is made on floats, as the reference does:
+    a bit view carries no gradient, so every element that is not faulty
+    passes the gradient of ``out`` through and a faulty one passes none."""
     if not out.dtype.is_floating_point:
         acc = out.to(torch.int32)
         return torch.where(fi, _stuck_at_i32(acc, bi, vi), acc).to(out.dtype)
-    raw = out.to(torch.float32).view(torch.int32)
-    bad = torch.where(fi, _stuck_at_i32(raw, bi, vi), raw)
-    return bad.view(torch.float32).to(out.dtype)
+    out32 = out.to(torch.float32)
+    bad = _stuck_at_i32(out32.detach().view(torch.int32), bi, vi).view(torch.float32)
+    return torch.where(fi, bad, out32).to(out.dtype)
 
 
 def _scatter_grid(state: FaultState, rows: int, cols: int, values, dtype, k: int | None = None):

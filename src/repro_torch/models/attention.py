@@ -1,7 +1,8 @@
-"""Grouped-query attention (covers MHA): projections, one-token decode and the
-KV cache.  Scores and softmax run in f32, as in the JAX package; attention
+"""Grouped-query attention (covers MHA): projections, the blockwise causal
+attention of a sequence (prefill and training), one-token decode and the KV
+cache.  Scores and softmax run in f32, as in the JAX package; attention
 itself is plain PyTorch (the JAX package left it to XLA, outside any Pallas
-kernel).  Blockwise prefill attention and MLA come with later slices.
+kernel).  MLA comes with a later slice.
 """
 from __future__ import annotations
 
@@ -62,6 +63,44 @@ def _qkv(x, p, cfg: AttnConfig, positions, ftc=None):
 def _grouped_scores(qb, k, scale):
     """qb: (B,qb,Hk,G,D), k: (B,S,Hk,D) -> (B,qb,Hk,G,S) fp32."""
     return torch.einsum("bqhgd,bshd->bqhgs", qb.to(torch.float32), k.to(torch.float32)) * scale
+
+
+def blockwise_causal_attention(q, k, v, n_kv: int, q_block: int) -> torch.Tensor:
+    """q: (B,S,Hq,D); k, v: (B,S,Hk,D); returns (B,S,Hq,D).
+
+    Query blocks of ``q_block`` rows in a Python loop (the reference scans
+    them); each block sees the whole K/V panel under a causal mask of -1e30,
+    in f32, so the score tensor is B·qb·Hq·S, never B·S·Hq·S."""
+    b, s, hq, d = q.shape
+    g = hq // n_kv
+    scale = 1.0 / (d ** 0.5)
+    qb = min(q_block, s)
+    if s % qb:
+        raise ValueError(f"sequence length {s} is not a multiple of the query block {qb}")
+    qr = q.reshape(b, s // qb, qb, n_kv, g, d)
+    kpos = torch.arange(s, device=q.device)
+    k32, v32 = k.to(torch.float32), v.to(torch.float32)
+    neg = torch.full((), -1e30, device=q.device)
+    outs = []
+    for blk in range(s // qb):
+        qpos = blk * qb + torch.arange(qb, device=q.device)
+        sc = _grouped_scores(qr[:, blk], k32, scale)  # (B,qb,Hk,G,S)
+        mask = kpos[None, :] <= qpos[:, None]  # (qb, S)
+        sc = torch.where(mask[None, :, None, None, :], sc, neg)
+        wts = torch.softmax(sc, dim=-1)
+        outs.append(torch.einsum("bqhgs,bshd->bqhgd", wts, v32).to(q.dtype))
+    return torch.stack(outs, dim=1).reshape(b, s, hq, d)
+
+
+def gqa_forward(x, p, cfg: AttnConfig, positions=None, ftc=None) -> torch.Tensor:
+    """Attention over a whole sequence x: (B,S,d), causal, for prefill and
+    training; every projection goes through ``ftc``."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _qkv(x, p, cfg, positions, ftc)
+    out = blockwise_causal_attention(q, k, v, cfg.n_kv, cfg.q_block)
+    return site_matmul(ftc, "attn.out")(out.reshape(b, s, cfg.n_heads * cfg.hd), p["wo"])
 
 
 def gqa_decode(x, p, cfg: AttnConfig, cache: Params, ftc=None) -> tuple[torch.Tensor, Params]:

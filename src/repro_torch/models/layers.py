@@ -1,4 +1,4 @@
-"""Shared building blocks: norms, RoPE, the FFN and init helpers.
+"""Shared building blocks: norms, RoPE, the FFN, init helpers and the losses.
 
 Params are plain dicts of tensors; the dtype order of every op follows the
 JAX package exactly, so both compute the same function.
@@ -9,6 +9,7 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.ftcontext import site_matmul
 
@@ -72,3 +73,62 @@ def ffn(x: torch.Tensor, p: Params, act: Callable = F.silu, ftc=None, site: str 
     else:
         h = act(h)
     return mm(h, p["down"])
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token NLL in f32; labels < 0 are masked out."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+def streamed_cross_entropy(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor, n_chunks: int,
+                           true_vocab: int, ftc=None) -> torch.Tensor:
+    """NLL of ``x @ table.T`` computed in vocab chunks, so the (B, S, V)
+    logits are never built whole.  Each chunk runs under
+    ``torch.utils.checkpoint``, so the backward recomputes its logits
+    instead of keeping them (the reference's ``jax.checkpoint``).
+
+    table: (V, d) with V % n_chunks == 0; rows >= ``true_vocab`` are
+    padding.  With a context that protects the head, the label's logit is
+    taken from the same (possibly corrupted) chunk panel as the normaliser;
+    otherwise it is a row gather of the table."""
+    b, s, d = x.shape
+    v = table.shape[0]
+    if v % n_chunks:
+        raise ValueError(f"vocab {v} does not split into {n_chunks} chunks")
+    tc = v // n_chunks
+    xf = x.reshape(b * s, d)
+    lab = labels.reshape(-1).clamp(min=0).long()
+    head_mm = site_matmul(ftc, "head")
+    fault_path = ftc is not None and ftc.protects("head")
+    cols = torch.arange(tc, device=x.device)
+
+    def chunk(m, acc, llc, xf, ci: int):
+        rows = table[ci * tc:(ci + 1) * tc].to(x.dtype)
+        lg = head_mm(xf, rows.T).to(torch.float32)  # (N, tc)
+        lg = lg.masked_fill(ci * tc + cols >= true_vocab, -1e30)
+        m2 = torch.maximum(m, lg.max(dim=-1).values)
+        acc = acc * torch.exp(m - m2) + torch.exp(lg - m2[:, None]).sum(-1)
+        if fault_path:  # the label's logit out of this chunk's panel
+            inchunk = (lab >= ci * tc) & (lab < (ci + 1) * tc)
+            col = (lab - ci * tc).clamp(0, tc - 1)
+            got = torch.gather(lg, 1, col[:, None])[:, 0]
+            llc = torch.where(inchunk, got, llc)
+        return m2, acc, llc
+
+    n = b * s
+    m = torch.full((n,), -1e30, dtype=torch.float32, device=x.device)
+    acc = torch.zeros((n,), dtype=torch.float32, device=x.device)
+    llc = torch.zeros((n,), dtype=torch.float32, device=x.device)
+    for ci in range(n_chunks):
+        m, acc, llc = checkpoint(chunk, m, acc, llc, xf, ci, use_reentrant=False)
+    if fault_path:
+        ll = llc
+    else:
+        ll = torch.sum(xf * table[lab].to(x.dtype), dim=-1).to(torch.float32)
+    lse = m + torch.log(acc)
+    mask = (labels.reshape(-1) >= 0).to(torch.float32)
+    return torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)

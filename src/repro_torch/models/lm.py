@@ -1,4 +1,5 @@
-"""LM composer: config schema, init, KV cache and one-token decode.
+"""LM composer: config schema, init, the sequence forward and its loss
+(prefill and training), KV cache and one-token decode.
 
 The dense family (qwen1.5-0.5b) and the MoE family (granite-moe-3b-a800m,
 deepseek-moe-16b) are ported, with GQA attention and RMSNorm; the other
@@ -8,9 +9,11 @@ Params are nested dicts of tensors in the JAX package's layout (``w`` is
 ``(d_in, d_out)``, ``x @ w``), except that the layer stack is a list of
 per-layer dicts walked by a Python loop instead of arrays stacked on a
 leading layer axis.  Masters are float32; :func:`cast_params` makes the
-``cfg.dtype`` working copies that :func:`decode_step` reads.
-:func:`params_from_numpy` turns the JAX param pytree (as numpy arrays) into
-this layout, so both packages can run the same weights.
+``cfg.dtype`` working copies that :func:`decode_step` reads, while
+:func:`forward` and :func:`loss_fn` take the masters and cast them inside, so
+that gradients reach them.  :func:`params_from_numpy` turns the JAX param
+pytree (as numpy arrays) into this layout and :func:`params_to_numpy` turns
+it back, so both packages can run, and compare, the same weights.
 """
 from __future__ import annotations
 
@@ -20,11 +23,15 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.ftcontext import FTContext, site_matmul
-from repro_torch.models.attention import AttnConfig, gqa_cache_init, gqa_decode, gqa_init
-from repro_torch.models.layers import Params, embed_init, ffn, ffn_init, rmsnorm, rmsnorm_init
+from repro_torch.models.attention import AttnConfig, gqa_cache_init, gqa_decode, gqa_forward, gqa_init
+from repro_torch.models.layers import (
+    Params, cross_entropy, embed_init, ffn, ffn_init, rmsnorm, rmsnorm_init, streamed_cross_entropy,
+)
 from repro_torch.models.moe import moe_forward, moe_init
+from repro_torch.tree import STACKED, tree_map
 
 _ACTS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"), "relu": F.relu}
 
@@ -135,18 +142,6 @@ def init_params(gen: torch.Generator, cfg: LMConfig, *, device=None) -> Params:
     return p
 
 
-def tree_map(fn, tree):
-    """``fn`` over every tensor of a params/cache tree of dicts and lists."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-_STACKED = ("blocks", "dense_blocks")
-
-
 def params_from_numpy(tree: dict, device="cuda") -> Params:
     """The JAX param pytree, handed over as nested dicts of numpy arrays
     (``jax.tree.map(np.asarray, params)``), in this package's layout: the
@@ -154,12 +149,35 @@ def params_from_numpy(tree: dict, device="cuda") -> Params:
     def to_t(a):
         return torch.from_numpy(np.array(a)).to(device)
 
-    out = {k: tree_map(to_t, v) for k, v in tree.items() if k not in _STACKED}
-    for key in _STACKED:
+    out = {k: tree_map(to_t, v) for k, v in tree.items() if k not in STACKED}
+    for key in STACKED:
         if key in tree:
             stack = tree[key]
             out[key] = [tree_map(lambda a, i=i: to_t(a[i]), stack) for i in range(len(stack["ln1"]))]
     return out
+
+
+def params_to_numpy(params: Params) -> dict:
+    """The inverse of :func:`params_from_numpy`: nested dicts of numpy
+    arrays in the JAX package's layout, the per-layer ``blocks`` and
+    ``dense_blocks`` dicts stacked on a leading layer axis."""
+    def to_np(t):
+        return t.detach().cpu().numpy()
+
+    out = {k: tree_map(to_np, v) for k, v in params.items() if k not in STACKED}
+    for key in STACKED:
+        if key in params:
+            out[key] = stack_layers([tree_map(to_np, lp) for lp in params[key]])
+    return out
+
+
+def stack_layers(layers: list):
+    """Per-layer trees of numpy arrays stacked leaf by leaf on a new leading
+    axis: the reference's layout of a layer stack."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([lp[k] for lp in layers]) for k in first}
+    return np.stack(layers)
 
 
 def cast_params(params: Params, dtype) -> Params:
@@ -167,6 +185,82 @@ def cast_params(params: Params, dtype) -> Params:
     per-step ``_cast`` done once.  A leaf already in ``dtype`` is shared, not
     copied."""
     return tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, params)
+
+
+# --------------------------------------------------------------------------- #
+# forward (prefill and training) and the loss
+# --------------------------------------------------------------------------- #
+def forward(
+    params: Params,
+    cfg: LMConfig,
+    batch: dict,
+    *,
+    ftc: FTContext | None = None,
+    last_only: bool = False,
+    return_hidden: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits, aux_loss).  batch: {"tokens": (B, S) int}.
+
+    ``params`` are the f32 masters (or working copies already in
+    ``cfg.dtype``): they are cast to ``cfg.dtype`` here, inside whatever is
+    differentiated, as the reference's ``_cast`` does.  Every weight matmul
+    of the protected layer prefix and the LM head routes through ``ftc``;
+    the moe family's first-k dense blocks run with the whole ``ftc``.
+    ``last_only``: production prefill, the logits of the last position only
+    (the (B, S, V) tensor is never built).  ``return_hidden``: the final
+    normed hidden state instead of the logits."""
+    _require_ported(cfg)
+    p = cast_params(params, cfg.dtype)
+    tokens = batch["tokens"].long()
+    x = p["embed"][tokens]
+    b, s = tokens.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    act = _ACTS[cfg.act]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def dense_block(x, lp, fc):
+        x = x + gqa_forward(rmsnorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, positions, fc)
+        return x + ffn(rmsnorm(x, lp["ln2"]), lp["ffn"], act=act, ftc=fc)
+
+    def moe_block(x, aux, lp, fc):
+        x = x + gqa_forward(rmsnorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, positions, fc)
+        y, ai = moe_forward(rmsnorm(x, lp["ln2"]), lp["moe"], cfg.moe, ftc=fc)
+        return x + y, aux + ai
+
+    dense, moe = _remat(dense_block, cfg), _remat(moe_block, cfg)
+    if cfg.first_k_dense:
+        for lp in p["dense_blocks"]:
+            x = dense(x, lp, ftc)
+    n_main = cfg.n_layers - cfg.first_k_dense
+    for lo, hi, fc in _layer_splits(n_main, ftc):
+        for i in range(lo, hi):
+            if cfg.family == "moe":
+                x, aux = moe(x, aux, p["blocks"][i], fc)
+            else:
+                x = dense(x, p["blocks"][i], fc)
+    if cfg.family == "moe":
+        aux = aux / max(n_main, 1)
+    if last_only:
+        x = x[:, -1:]
+    if return_hidden:
+        return rmsnorm(x, p["final_norm"]), aux
+    return _logits(x, p, cfg, ftc), aux
+
+
+def loss_fn(params: Params, cfg: LMConfig, batch: dict, *, aux_weight: float = 0.01,
+            ftc: FTContext | None = None) -> tuple[torch.Tensor, dict]:
+    """(loss, {"loss": nll, "aux": aux}): the mean next-token NLL over
+    ``batch["labels"]`` (labels < 0 masked) plus ``aux_weight`` times the
+    MoE load-balancing loss.  With ``cfg.loss_chunks`` the NLL streams over
+    vocab chunks (:func:`~repro_torch.models.layers.streamed_cross_entropy`)."""
+    if cfg.loss_chunks:
+        x, aux = forward(params, cfg, batch, ftc=ftc, return_hidden=True)
+        table = params.get("lm_head", params["embed"]).to(cfg.dtype)
+        nll = streamed_cross_entropy(x, table, batch["labels"], cfg.loss_chunks, cfg.vocab, ftc=ftc)
+    else:
+        logits, aux = forward(params, cfg, batch, ftc=ftc)
+        nll = cross_entropy(logits, batch["labels"])
+    return nll + aux_weight * aux, {"loss": nll, "aux": aux}
 
 
 # --------------------------------------------------------------------------- #
@@ -197,6 +291,25 @@ def _layer_splits(n: int, ftc: FTContext | None) -> list[tuple[int, int, FTConte
     if k >= n:
         return [(0, n, ftc)]
     return [(0, k, ftc), (k, n, None)]
+
+
+def _remat(f, cfg: LMConfig):
+    """One layer's body under ``torch.utils.checkpoint`` when ``cfg.remat``
+    (the reference's ``jax.checkpoint``: the backward recomputes the layer's
+    activations instead of keeping them).  Without gradients it runs plain."""
+    if not cfg.remat:
+        return f
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} (keep the matmul outputs, recompute the rest) is not "
+            f"ported; it waits for ROADMAP A6.  remat_policy='full' recomputes every layer"
+        )
+
+    def g(*args):
+        if not torch.is_grad_enabled():
+            return f(*args)
+        return checkpoint(f, *args, use_reentrant=False)
+    return g
 
 
 def _logits(x, params, cfg: LMConfig, ftc: FTContext | None = None):

@@ -20,6 +20,8 @@ The log is the source of truth for the runtime's latency questions:
     whole-array sweep.
   * **transient detection** — per SEU flip, injection to the first
     ``abft.alarm`` (:func:`transient_records`).
+  * **checkpoint memory faults** — per leaf, the ``memory.fault`` actions
+    of a guarded restore (:func:`memory_fault_records`).
 
 Serialization is JSONL (one event per line); ``python -m
 repro_torch.obs.schema`` validates emitted files against the event schema.
@@ -186,6 +188,26 @@ def transient_records(log: EventLog) -> list[dict]:
             "latency": (later[0] - e.step) if later else None,
         })
     return records
+
+
+def memory_fault_records(log: EventLog) -> list[dict]:
+    """Per-leaf outcome of the checkpoint memory-fault path: for each leaf
+    that ever raised ``memory.fault``, the actions it went through
+    (detected / refetched / refused, in order) and the final disposition —
+    ``"refetched"`` means the guarded restore recovered it from a pristine
+    source, ``"refused"`` means the restore was (correctly) rejected."""
+    by_leaf: dict[str, list[Event]] = {}
+    for e in log.of_kind("memory.fault"):
+        by_leaf.setdefault(e.data["leaf"], []).append(e)
+    return [
+        {
+            "leaf": leaf,
+            "actions": [e.data["action"] for e in evs],
+            "outcome": evs[-1].data["action"],
+            "steps": [e.step for e in evs],
+        }
+        for leaf, evs in sorted(by_leaf.items())
+    ]
 
 
 def latency_summary(latencies: list[int], prefix: str) -> dict:

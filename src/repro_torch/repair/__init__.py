@@ -12,8 +12,8 @@ in the model instead:
   * :mod:`repro_torch.repair.prune` — the no-permutation fallback: zero the
     channels mapped onto unrepaired PEs in place.
 
-Budgeted fine-tuning with the faulty array in the forward pass (the
-reference's ``retrain``) comes with the training slice.
+  * :mod:`repro_torch.repair.retrain` — the budgeted fine-tune with the
+    faulty array and the plan in the forward pass.
 
     sal = weight_salience(params, hyca.cols)
     plan = remap_plan(confirmed_state, hyca, sal)
@@ -31,6 +31,7 @@ from repro_torch.repair.prune import (  # noqa: F401
     pruned_fraction,
     pruned_pe_fraction,
 )
+from repro_torch.repair.retrain import RetrainConfig, grad_mask, retrain  # noqa: F401
 from repro_torch.repair.remap import (  # noqa: F401
     SalienceProbe,
     fold_channel_salience,

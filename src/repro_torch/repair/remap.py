@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.ftcontext import SITES
+from repro_torch.tree import stacked_leaves
 
 __all__ = [
     "fold_channel_salience",
@@ -27,10 +28,6 @@ __all__ = [
     "site_weight_salience",
     "SalienceProbe",
 ]
-
-# the per-layer lists of this package's params; the reference stacks each of
-# their leaves on a leading layer axis
-_STACKED = ("blocks", "dense_blocks")
 
 
 def fold_channel_salience(channel_salience, cols: int) -> np.ndarray:
@@ -46,39 +43,12 @@ def _host(a) -> np.ndarray:
 
 
 def _leaves(tree) -> Iterable[np.ndarray]:
-    """The leaves in the reference's order (``jax.tree_util.tree_leaves``:
-    dict keys sorted, lists in order), each per-layer list stacked, one leaf
-    at a time."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            v = tree[k]
-            if k in _STACKED and isinstance(v, list):
-                # stack one leaf path at a time: a full-width stack of every
-                # leaf at once would double the host's copy of the params
-                yield from _stacked_leaves(v)
-            else:
-                yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield _host(tree)
-
-
-def _stacked_leaves(layers: list, path: tuple = ()) -> Iterable[np.ndarray]:
-    node = layers[0]
-    for k in path:
-        node = node[k]
-    if isinstance(node, dict):
-        for k in sorted(node):
-            yield from _stacked_leaves(layers, path + (k,))
-        return
-    parts = []
-    for lp in layers:
-        for k in path:
-            lp = lp[k]
-        parts.append(_host(lp))
-    yield np.stack(parts)
+    """The leaves in the reference's order (dict keys sorted, lists in
+    order), each leaf of a layer stack stacked over its layers, one leaf at
+    a time: a full-width stack of every leaf at once would double the
+    host's copy of the params."""
+    for _, leaves, stacked in stacked_leaves(tree):
+        yield np.stack([_host(t) for t in leaves]) if stacked else _host(leaves[0])
 
 
 def weight_salience(params, cols: int) -> np.ndarray:
@@ -118,7 +88,7 @@ class SalienceProbe:
     mean |output| per residue class at every protected call site:
 
         probe = SalienceProbe(cols=hyca.cols)
-        decode_step(params, cfg, cache, batch, ftc=probe)
+        forward(params, cfg, calib_batch, ftc=probe)
         plan = remap_plan(state, hyca, probe.salience())
 
     Implements the surface the models touch (``active``, ``protects``,

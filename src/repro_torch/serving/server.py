@@ -53,8 +53,13 @@ device add a step (one graph node) of an increment rewritten per swap;
 numpy beside the probe, outside the captured graph, so it never recaptures
 and moves no served bit.
 
-Not in this slice (it raises ``NotImplementedError``): ``repair="retrain"``
-(the training slice).
+``repair="retrain"`` adds a budgeted fine-tune of this server's f32 master
+params to the remap hook (:func:`repro_torch.repair.retrain.retrain`, the
+faulty array and the new plan in its forward).  The retrained params are
+this server's own: its working copies are made from them, and its step
+recaptures once over them (:meth:`CapturedStep.swap_params`), since the
+captured graph read the bundle's shared copies at fixed addresses.  Every
+other server on the bundle goes on serving the bundle's params.
 """
 from __future__ import annotations
 
@@ -79,6 +84,7 @@ from repro_torch.obs.events import EventLog
 from repro_torch.obs.series import SeriesBuffer, record_step
 from repro_torch.repair.plan import remap_plan
 from repro_torch.repair.remap import weight_salience
+from repro_torch.repair.retrain import RetrainConfig, retrain
 from repro_torch.serving.fault_manager import FaultInjector, FaultManager, FaultManagerConfig
 from repro_torch.serving.metrics import ServingMetrics, StepRecord
 from repro_torch.serving.queue import CompletedRequest, Request, RequestQueue
@@ -105,8 +111,10 @@ class ServerConfig:
     #   none    — overflow faults RETIRE columns (throughput cliff)
     #   remap   — overflow columns are REMAPPED: a salience-chosen pruned
     #             residue class lands on them; the server keeps full slots
-    #   retrain — remap plus a budgeted fine-tune: the training slice
+    #   retrain — remap plus a budgeted fault-aware fine-tune of this
+    #             server's params
     repair: str = "none"
+    retrain_steps: int = 4         # fine-tune budget when repair == "retrain"
     max_remap_fraction: float = 0.5
     counters: bool = False         # device counters, one add a step
     series: bool = False           # one telemetry row a step into a device ring
@@ -160,9 +168,9 @@ class CapturedStep:
     With ``capture`` (by default wherever :func:`graph_holds`), the first
     call runs the step eagerly on a side stream, which is the warm-up, then
     captures it as one CUDA graph; every later call replays the graph.  The graph reads fixed addresses: the
-    bundle's params, this cache (advanced in place), the static buffers and
-    the bundle's mask grids (rewritten in place by a fault-state swap).  A
-    failed capture raises.  Without ``capture`` the same call runs the step
+    working params (the bundle's, until :meth:`swap_params`), this cache
+    (advanced in place), the static buffers and the bundle's mask grids
+    (rewritten in place by a fault-state swap).  A failed capture raises.  Without ``capture`` the same call runs the step
     eagerly through the same buffers; that is how the CPU runs it, and the
     comparison a captured step is held to.
 
@@ -179,6 +187,7 @@ class CapturedStep:
             raise ValueError(f"a CUDA graph holds the step on a card under dispatch {GRAPH_DISPATCHES}, "
                              f"not on {dev} under {dispatch!r}")
         self.bundle, self.cache, self.capture = bundle, cache, capture
+        self.params = bundle.work  # the working params the step reads
         n = bundle.cfg.n_slots
         self.tokens = torch.zeros((n, 1), dtype=torch.int32, device=dev)
         self.logits = torch.zeros((n, 1, bundle.lm.padded_vocab), dtype=bundle.lm.dtype, device=dev)
@@ -192,9 +201,16 @@ class CapturedStep:
         # step adds the context's increment, one node of the graph
         self.counters: torch.Tensor | None = None
 
+    def swap_params(self, params: Params) -> None:
+        """Read ``params`` (working copies in ``lm.dtype``) from the next
+        call on.  A captured graph read the old ones at fixed addresses, so
+        it is dropped and the next call warms up and captures again."""
+        self.params = params
+        self.graph = None
+
     def _body(self) -> None:
         b = self.bundle
-        logits, _ = decode_step(b.work, b.lm, self.cache, {"token": self.tokens}, ftc=b.ftc)
+        logits, _ = decode_step(self.params, b.lm, self.cache, {"token": self.tokens}, ftc=b.ftc)
         self.logits.copy_(logits)
         self.sampled.copy_(logits[:, -1, :].argmax(dim=-1))
         if self.counters is not None:
@@ -334,12 +350,13 @@ class ModelBundle:
         1) into the step's token buffer and run the step.  Returns (its
         logits buffer, ``cache`` updated in place); its sampled tokens are in
         ``captured_step(cache).sampled``."""
-        if params is not self.work:
-            raise ValueError("the step reads the bundle's working params (ModelBundle.work)")
+        step = self.captured_step(cache)
+        if params is not step.params:
+            raise ValueError("the step reads its own working params (CapturedStep.params: the bundle's "
+                             "ModelBundle.work, or those a retrain repair swapped in)")
         if fstate is not self.ftc.state or plan is not self.ftc.plan:
             self.ftc.swap(state=fstate, plan=plan)
             self.swaps += 1
-        step = self.captured_step(cache)
         step.tokens.copy_(tok)
         step()
         return step.logits, cache
@@ -372,15 +389,18 @@ class FaultTolerantServer:
             raise ValueError(f"unknown mode {cfg.mode!r}")
         if cfg.repair not in ("none", "remap", "retrain"):
             raise ValueError(f"unknown repair mode {cfg.repair!r}")
-        if cfg.repair == "retrain":
-            raise NotImplementedError("repair='retrain' comes with the training slice")
         self.cfg = cfg
         self.bundle = bundle or ModelBundle(cfg)
         self.lm = self.bundle.lm
         self.device = self.bundle.device
         self.cache = self.bundle.fresh_cache()
         self.decode = self.bundle.captured_step(self.cache, capture=capture)
+        # this server's view of the params: the f32 masters and the working
+        # copies the step reads, the bundle's until a retrain repair swaps
+        # in this server's own
+        self.master_params = self.bundle.params
         self.params = self.bundle.work
+        self.retrain_reports: list[dict] = []
         self.plan = self.bundle.identity_plan
         self._repair_key: tuple[int, int] | None = None
         # one event log per server, shared with the injector and the manager;
@@ -488,10 +508,17 @@ class FaultTolerantServer:
     # ------------------------------------------------------------------ #
     # the repair hook
     # ------------------------------------------------------------------ #
-    def apply_repair(self, *, plan) -> None:
-        """Swap a repair plan into the running server: the next step swaps
-        it into the bundle's context in place, with no recapture."""
-        self.plan = plan
+    def apply_repair(self, *, plan=None, params: Params | None = None) -> None:
+        """Swap a repair plan and/or repaired f32 master params into the
+        running server.  The next step swaps a plan into the bundle's context
+        in place, with no recapture; params become this server's own working
+        copies, which its step recaptures over once."""
+        if plan is not None:
+            self.plan = plan
+        if params is not None:
+            self.master_params = params
+            self.params = cast_params(params, self.lm.dtype)
+            self.decode.swap_params(self.params)
 
     def _maybe_repair(self) -> None:
         if self.cfg.repair == "none" or self.cfg.mode != "protected":
@@ -507,7 +534,20 @@ class FaultTolerantServer:
             self.manager.confirmed_state, self.bundle.hyca, self.bundle.salience,
             broken_cols=self.manager.remapped_cols,
         )
-        self.apply_repair(plan=plan)
+        params = None
+        if self.cfg.repair == "retrain" and self.cfg.retrain_steps > 0:
+            t0 = time.perf_counter()
+            params, report = retrain(
+                self.master_params, self.lm,
+                hyca=self.bundle.hyca,
+                state=self.manager.confirmed_state,
+                plan=plan,
+                rc=RetrainConfig(steps=self.cfg.retrain_steps, seq_len=min(32, self.cfg.smax),
+                                 seed=self.cfg.seed),
+            )
+            # the report's losses were read on the host: the fine-tune has ended
+            self.retrain_reports.append(dict(report, step=self.step_idx, seconds=time.perf_counter() - t0))
+        self.apply_repair(plan=plan, params=params)
         self.log.emit(
             "repair.plan",
             step=self.step_idx,
@@ -515,7 +555,7 @@ class FaultTolerantServer:
             n_remapped=self.manager.n_remapped,
             remapped_cols=sorted(self.manager.remapped_cols),
             quality_fraction=self.manager.quality_fraction,
-            retrained=False,
+            retrained=params is not None,
         )
 
     @property

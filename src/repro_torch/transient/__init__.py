@@ -10,13 +10,13 @@ sit still:
     checksum-augmented matmul (:func:`repro_torch.core.engine.abft_checksums`),
     the third detector beside the ScanEngine and the OnlineVerifier;
   * :mod:`repro_torch.transient.coverage` — the detector-coverage campaign
-    (fault class × detector matrix).
-
-The checkpoint memory-fault path (tamper, detect, re-fetch) comes with the
-training slice, beside the checkpoint store it exercises.
+    (fault class × detector matrix);
+  * :mod:`repro_torch.transient.memory`   — the checkpoint memory-fault
+    path: tamper a stored leaf, detect it by its digest, re-fetch or refuse.
 """
 from repro_torch.transient.abft import abft_check
 from repro_torch.transient.coverage import CoverageSpec, run_coverage
+from repro_torch.transient.memory import guarded_restore, tamper_checkpoint, tamper_leaf
 from repro_torch.transient.seu import (
     FlipPlan,
     FlipSchedule,
@@ -30,6 +30,9 @@ __all__ = [
     "abft_check",
     "CoverageSpec",
     "run_coverage",
+    "guarded_restore",
+    "tamper_checkpoint",
+    "tamper_leaf",
     "FlipPlan",
     "FlipSchedule",
     "emit_flip_events",

@@ -466,3 +466,101 @@ def test_plan_swap_and_counters_in_the_captured_step_on_the_card(arch):
     assert c["steps"] == len(gl) and c["pruned_elems"] > 0 and gn == en
     experts = lm.moe.n_padded if lm.moe else 1
     assert c["protected_calls"] == gn[0] + experts * gn[1]
+
+
+@pytest.mark.cuda
+def test_retrain_server_recaptures_once_and_its_sibling_serves_as_before_on_the_card():
+    """``repair="retrain"`` on the smoke config: six faults at step 2, the
+    plan and the fine-tune there, then the server's own working params; its
+    captured step recaptures once (2 captures) and equals the eager step bit
+    for bit; a sibling on the same bundle serves bitwise what it served
+    before the retrain, with one capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving import FaultInjector, FaultTolerantServer, ModelBundle, ServerConfig
+
+    cfg = ServerConfig(arch="qwen1.5-0.5b", device="cuda", dispatch="fused", n_slots=4, smax=32, rows=8, cols=8,
+                       dppu_size=4, seed=0, mode="protected")
+    bundle = ModelBundle(dataclasses.replace(cfg, mode="off"), lm=get_smoke_config("qwen1.5-0.5b"))
+    gen = torch.Generator().manual_seed(3)
+    trace = [torch.randint(0, 512, (4,), generator=gen).numpy() for _ in range(6)]
+    six = [(0, 1, 30, 1), (1, 2, 29, 0), (2, 3, 30, 1), (3, 4, 28, 1), (0, 6, 30, 1), (1, 7, 29, 1)]
+
+    def serve(repair, capture=None):
+        srv = FaultTolerantServer(dataclasses.replace(cfg, repair=repair, retrain_steps=2), bundle=bundle,
+                                  injector=FaultInjector(8, 8, seed=1), capture=capture)
+        for p in trace:
+            srv.submit(p, 6)
+        logits = []
+        while srv.queue.depth() or srv.scheduler.active:
+            if srv.step_idx == 2:
+                for r, c, b, v in six:
+                    srv.injector.inject_at(r, c, bit=b, val=v)
+                srv.manager.bist()
+            srv.step()
+            logits.append(srv.decode.logits.clone())
+        return srv, logits
+
+    before, before_logits = serve("remap")
+    rt, rt_logits = serve("retrain")
+    eager, eager_logits = serve("retrain", capture=False)
+    after, after_logits = serve("remap")
+    assert rt.repair_events[0]["retrained"] and rt.decode.captures == 2 and eager.decode.captures == 0
+    assert rt.params is not bundle.work and rt.decode.params is rt.params
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(rt_logits, eager_logits))
+    assert before.decode.captures == after.decode.captures == 1
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(before_logits, after_logits))
+    assert all(np.array_equal(before.completions_by_rid()[r], after.completions_by_rid()[r])
+               for r in before.completions_by_rid())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-3b-a800m"])
+def test_fused_prefill_on_the_card(arch):
+    """``forward(last_only=True)`` on the smoke config under ``fused`` on the
+    card: one ``ft_matmul`` launch a protected matmul (the experts one
+    ``ft_matmul_batched`` an einsum), protected with faults the DPPU repairs
+    bitwise the fault-free array, unprotected different, and the card within
+    1e-4 of the same prefill on the CPU in f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.ftcontext import build_ftcontext
+    from repro_torch.models import lm as TL
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    params = TL.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(1))
+    hyca = TE.HyCAConfig(4, 4, mode="protected")
+
+    def state(faults, dev):
+        fpt = torch.tensor([[r, c] for r, c, _, _ in faults] + [[-1, -1]], dtype=torch.int32)
+        bits = torch.tensor([b for *_, b, _ in faults] + [0], dtype=torch.int32)
+        vals = torch.tensor([v for *_, v in faults] + [0], dtype=torch.int32)
+        return TE.FaultState(fpt, bits, vals).to(dev)
+
+    def prefill(faults, mode, dev):
+        ftc = build_ftcontext(state(faults, dev), dataclasses.replace(hyca, mode=mode), dispatch="fused")
+        with torch.no_grad():
+            p = TL.tree_map(lambda a: a.to(dev), params)
+            return TL.forward(p, cfg, {"tokens": tokens.to(dev)}, ftc=ftc, last_only=True)[0]
+
+    two = [(0, 1, 22, 1), (2, 3, 21, 0)]  # mantissa bits: the unprotected values stay finite
+    kernels = (TFM.ft_matmul, TFM.ft_matmul_batched)
+    counts = [k.launches for k in kernels]
+    off = prefill([], "protected", "cuda")
+    launched = [k.launches - c for k, c in zip(kernels, counts)]
+    per_layer = 7 if cfg.family == "dense" else 5
+    assert launched == [cfg.n_layers * per_layer + 1, 3 * cfg.n_layers if cfg.moe else 0]
+    prot = prefill(two, "protected", "cuda")
+    assert torch.equal(off.view(torch.int32), prot.view(torch.int32))
+    assert not torch.equal(off.view(torch.int32), prefill(two, "unprotected", "cuda").view(torch.int32))
+    cpu = prefill(two, "unprotected", "cpu")
+    card = prefill(two, "unprotected", "cuda").cpu()
+    assert float((card - cpu).abs()[..., :cfg.vocab].max()) <= 1e-4

@@ -25,14 +25,14 @@ def _imported_modules(path: Path) -> list[str]:
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_package_import(path):
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
 def test_port_imports_with_jax_and_reference_package_blocked():
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "for name in ('jax', 'jaxlib', 'repro', 'ml_dtypes'):\n"
         "    sys.modules[name] = None\n"
         "import repro_torch.serving.server, repro_torch.kernels.ft_matmul\n"
         "import repro_torch.kernels.dppu_recompute, repro_torch.kernels._build\n"
@@ -43,6 +43,9 @@ def test_port_imports_with_jax_and_reference_package_blocked():
         "import repro_torch.obs.schema, repro_torch.obs.trace, repro_torch.obs.replay\n"
         "import repro_torch.obs.export, repro_torch.obs.httpd\n"
         "import repro_torch.transient, repro_torch.runtime, repro_torch.core.detection\n"
+        "import repro_torch.launch.train, repro_torch.checkpoint.store, repro_torch.optim.compression\n"
+        "import repro_torch.data.pipeline, repro_torch.transient.memory, repro_torch.repair.retrain\n"
+        "import repro_torch.tree, repro_torch.models.lm\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )
@@ -83,8 +86,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert probe_check.launches == before
     # the ABFT canary is ported: its constructors work on the CPU
     assert ModelBundle(ServerConfig(device="cpu", abft=True)).device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="training slice"):
-        FaultTolerantServer(ServerConfig(device="cpu", repair="retrain"))
+    # repair="retrain" is ported: a retrain server builds on the CPU
+    assert FaultTolerantServer(ServerConfig(device="cpu", repair="retrain")).cfg.retrain_steps == 4
     mgr = FaultManager(ServerConfig(device="cpu").hyca(), FaultInjector(8, 8),
                        FaultManagerConfig(abft=True), device="cpu")
     assert mgr.cfg.abft and mgr.abft_check() is False and mgr.abft_alarms == 0
