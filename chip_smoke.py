@@ -8,8 +8,9 @@ Phases, each printed on its own line; any failure exits non-zero:
   2. build    — compile every kernel under src/repro_torch/csrc with nvcc,
      one nvcc per source in parallel, and print each kernel's registers,
      shared memory and spill bytes as nvcc -Xptxas -v reported them;
-  3. ft_matmul against ft_matmul_ref at every shape of the qwen1.5-0.5b and
-     granite-moe-3b-a800m decode steps (M=4) plus ragged ones (M = 3 and
+  3. ft_matmul against ft_matmul_ref at every shape of the decode steps of
+     every served model (M = 4; whisper's cross-attention K/V at M = 6000;
+     each distinct shape once) plus ragged ones (M = 3 and
      37, a 66-byte row pitch that takes the scalar instantiation, a
      transposed table at a K that ends inside a step), bf16 and f32, on an
      8x8 array with stuck-at-0/1 faults (bits 30 and 31 included), a remap
@@ -134,6 +135,28 @@ Phases, each printed on its own line; any failure exits non-zero:
      prefill, counted from 0 just before the protected prefill; the
      prefill's ms and per prefill shape the kernels' times beside the
      library call and the bound.
+  11. the attention families, each at full width after granite-moe-3b-a800m
+     is freed and freed before the next: granite-8b (llama-style, untied
+     head), starcoder2-3b (LayerNorm, non-gated GELU FFN, QKV bias),
+     minicpm3-4b (MLA), llava-next-mistral-7b (vlm) and whisper-tiny
+     (encdec, served over a zero encoder output as the reference serves it).
+     The decode step's call ledger, recorded on the meta device, equals
+     DECODE_SHAPES (ft_matmul a step: 253, 181, 435, 225, 41); then the
+     modes of 6 through the captured step and the eager one, with the same
+     checks (launches a step, one capture, captured equal to eager bit for
+     bit, protected equal to off at every step, unprotected different).
+     whisper's cross-attention K/V (M = 4 x 1500 rows) reaches every PE
+     row, so its protected fault of step 2 is confirmed by a BIST at step 2
+     rather than by the scan; the others keep the scan.  The kernel times
+     a decode step against the library call and the bound, the captured
+     step's ms and tokens/s.  minicpm3-4b (4 x 512 tokens: wkv_b on the
+     array), llava (1 x 3072 tokens and 2880 patches through mm.proj) and
+     whisper (4 x 448 tokens over 4 x 1500 frames through the encoder): the
+     fused prefill off, protected (bitwise off) and unprotected (differs),
+     ft_matmul launching the forward's ledger count.  Phase 3 holds
+     ft_matmul to its plain version at each of these models' decode shapes
+     (N = 288, K = 384, the 73472- and 51968-wide heads, whisper's M = 6000
+     call).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -143,6 +166,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -159,6 +183,10 @@ L2_BYTES = 50 * 2**20
 
 ROWS = COLS = 8
 QWEN, GRANITE = "qwen1.5-0.5b", "granite-moe-3b-a800m"
+# the attention families, served after the two models above
+GRANITE8B, STARCODER2, MINICPM3 = "granite-8b", "starcoder2-3b", "minicpm3-4b"
+LLAVA, WHISPER = "llava-next-mistral-7b", "whisper-tiny"
+FAMILIES = (GRANITE8B, STARCODER2, MINICPM3, LLAVA, WHISPER)
 # (name, M, K, N, launches per decode step) of each model's ft_matmul calls
 DECODE_SHAPES = {
     QWEN: (
@@ -174,9 +202,47 @@ DECODE_SHAPES = {
         ("router_1536x48", 4, 1536, 48, 32),
         ("head_1536x49408", 4, 1536, 49408, 1),
     ),
+    GRANITE8B: (  # llama-style, untied lm_head
+        ("q_out_4096x4096", 4, 4096, 4096, 36 * 2),
+        ("kv_4096x1024", 4, 4096, 1024, 36 * 2),
+        ("gate_up_4096x14336", 4, 4096, 14336, 36 * 2),
+        ("down_14336x4096", 4, 14336, 4096, 36),
+        ("head_4096x49152", 4, 4096, 49152, 1),
+    ),
+    STARCODER2: (  # non-gated FFN, tied
+        ("q_out_3072x3072", 4, 3072, 3072, 30 * 2),
+        ("kv_3072x256", 4, 3072, 256, 30 * 2),
+        ("up_3072x12288", 4, 3072, 12288, 30),
+        ("down_12288x3072", 4, 12288, 3072, 30),
+        ("head_3072x49152", 4, 3072, 49152, 1),
+    ),
+    MINICPM3: (  # MLA: the q LoRA pair, wkv_a (kv_lora + d_rope = 288), wo
+        ("wq_a_2560x768", 4, 2560, 768, 62),
+        ("wq_b_768x3840", 4, 768, 3840, 62),
+        ("wkv_a_2560x288", 4, 2560, 288, 62),
+        ("wo_2560x2560", 4, 2560, 2560, 62),
+        ("gate_up_2560x6400", 4, 2560, 6400, 62 * 2),
+        ("down_6400x2560", 4, 6400, 2560, 62),
+        ("head_2560x73472", 4, 2560, 73472, 1),
+    ),
+    LLAVA: (  # the mistral backbone, untied lm_head
+        ("q_out_4096x4096", 4, 4096, 4096, 32 * 2),
+        ("kv_4096x1024", 4, 4096, 1024, 32 * 2),
+        ("gate_up_4096x14336", 4, 4096, 14336, 32 * 2),
+        ("down_14336x4096", 4, 14336, 4096, 32),
+        ("head_4096x32000", 4, 4096, 32000, 1),
+    ),
+    WHISPER: (  # self q/k/v/o, cross q/o; cross k/v over 4 x 1500 encoder frames
+        ("qkvo_384x384", 4, 384, 384, 4 * 6),
+        ("cross_kv_6000x384x384", 6000, 384, 384, 4 * 2),
+        ("up_384x1536", 4, 384, 1536, 4),
+        ("down_1536x384", 4, 1536, 384, 4),
+        ("head_384x51968", 4, 384, 51968, 1),
+    ),
 }
 # (name, E, M, K, N, launches per decode step) of ft_matmul_batched
 EXPERT_SHAPES = {
+    **{arch: () for arch in FAMILIES},
     QWEN: (),
     GRANITE: (
         ("gate_up_48x1536x512", 48, 4, 1536, 512, 32 * 2),
@@ -358,8 +424,13 @@ def ft_matmul_phase(dev) -> float:
     and_g, or_g = fault_grids(dev)
     max_err = max_rel = 0.0
     plans = {}
-    shapes = ([(n, m, k, nn) for arch in (QWEN, GRANITE) for n, m, k, nn, _ in DECODE_SHAPES[arch]]
-              + list(EXTRA_SHAPES))
+    seen, shapes = set(), []
+    for arch, arch_shapes in DECODE_SHAPES.items():
+        for n, m, k, nn, _ in arch_shapes:
+            if (m, k, nn, n.startswith("head")) not in seen:  # granite-8b and llava share their layers'
+                seen.add((m, k, nn, n.startswith("head")))
+                shapes.append((n if arch in (QWEN, GRANITE) else f"{n}@{arch}", m, k, nn))
+    shapes += list(EXTRA_SHAPES)
     for name, m, k, n in shapes:
         head = name.startswith("head")
         for dtype in (torch.bfloat16, torch.float32):
@@ -486,12 +557,92 @@ def trace(vocab: int, n: int = 6, prompt: int = 8, gen: int = 8):
             for _ in range(n)]
 
 
+BIST_FAULTS = [(0, 1, 30, 1), (2, 3, 31, 0), (3, 6, 20, 1)]  # 3 <= the DPPU's 4
+# the served runs: (mode, faults at power-on, (step, fault) appearing before
+# that step).  The fault of step 2 makes the fault state swap after the
+# capture: in protected mode on PE row 5, which a 4-slot step never reaches
+# (output row i runs on PE row i % 8), so protected still serves off's bits
+# while the scan finds it; in unprotected mode on PE row 1
+SCENARIOS = (("off", (), ()), ("protected", BIST_FAULTS, ((2, (5, 3, 30, 1)),)),
+             ("unprotected", [(0, 0, 30, 1)], ((2, (1, 2, 29, 1)),)))
+
+
 def _kernels():
     from repro_torch.kernels.dppu_recompute import probe_check, probe_check_pair
     from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_batched
 
     return {"ft_matmul": ft_matmul, "ft_matmul_batched": ft_matmul_batched, "probe_check": probe_check,
             "probe_check_pair": probe_check_pair}
+
+
+def call_shapes(fn, ctx, *args) -> dict[tuple, int]:
+    """{(kernel, E, M, K, N): launches} of one call of ``fn(ctx, *args)``:
+    each protected ``matmul`` is one ``ft_matmul`` launch (E = 1), each
+    protected ``einsum`` one ``ft_matmul_batched`` launch over its E
+    experts.  Recorded through the stand-in context of the call ledger
+    (:func:`repro_torch.obs.counters.trace_site_calls`), which keeps
+    ``ctx``'s protection decisions and computes plain matmuls, so ``meta``
+    tensors record shapes only; the ledger keeps (M, N), this adds K."""
+    from repro_torch.obs.counters import _LedgerRecorder
+
+    got: dict[tuple, int] = {}
+
+    class Recorder(_LedgerRecorder):
+        def _add(self, site, key):
+            if self.protects(site) and self.ftc.dispatch != "plain":
+                got[key] = got.get(key, 0) + 1
+
+        def matmul(self, x, w, *, site):
+            self._add(site, ("ft_matmul", 1, math.prod(x.shape[:-1]), x.shape[-1], w.shape[-1]))
+            return super().matmul(x, w, site=site)
+
+        def einsum(self, spec, x, w, *, site):
+            self._add(site, ("ft_matmul_batched", x.shape[1], x.shape[0] * x.shape[2], x.shape[-1], w.shape[-1]))
+            return super().einsum(spec, x, w, site=site)
+
+    with torch.no_grad():
+        fn(Recorder(ctx), *args)
+    return got
+
+
+def table_shapes(mm_shapes, expert_shapes) -> dict[tuple, int]:
+    """A shape table's {(kernel, E, M, K, N): launches}, keyed as
+    :func:`call_shapes` keys a recorded call."""
+    want: dict[tuple, int] = {}
+    for kname, shapes in (("ft_matmul", [(1, *s[1:]) for s in mm_shapes]),
+                          ("ft_matmul_batched", [s[1:] for s in expert_shapes])):
+        for e, m, k, n, per in shapes:
+            want[(kname, e, m, k, n)] = want.get((kname, e, m, k, n), 0) + per
+    return want
+
+
+def meta_tree(tree):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda a: torch.empty_like(a, device="meta"), tree)
+
+
+def decode_shapes(lm, ctx, params, n_slots: int = 4) -> dict[tuple, int]:
+    """:func:`call_shapes` of one decode step of ``n_slots`` on ``meta``."""
+    from repro_torch.models.lm import decode_step, init_cache
+
+    return call_shapes(lambda c, p, ch, t: decode_step(p, lm, ch, {"token": t}, ftc=c), ctx, meta_tree(params),
+                       init_cache(lm, n_slots, 96, device="meta"),
+                       torch.zeros((n_slots, 1), dtype=torch.int32, device="meta"))
+
+
+def prefill_shapes(lm, ctx, params, batch: dict) -> dict[tuple, int]:
+    """:func:`call_shapes` of the fused prefill, ``forward(last_only=True)``,
+    of ``batch`` on ``meta``."""
+    from repro_torch.models.lm import forward
+
+    return call_shapes(lambda c, p, b: forward(p, lm, b, ftc=c, last_only=True), ctx, meta_tree(params),
+                       meta_tree(batch))
+
+
+def hold_shapes(what: str, got: dict, mm_shapes, expert_shapes) -> None:
+    want = table_shapes(mm_shapes, expert_shapes)
+    check(got == want, f"{what}: the path launches {sorted(got.items())}, the table says {sorted(want.items())}")
 
 
 def serve(bundle, mode: str, vocab: int, *, faults=(), inject=(), bist_at=None, capture=None,
@@ -556,36 +707,26 @@ def _same_bits(a: list, b: list) -> bool:
     return len(a) == len(b) and all(torch.equal(x.view(torch.int16), y.view(torch.int16)) for x, y in zip(a, b))
 
 
-def server_phase(dev, smi: str, arch: str):
-    """Serve ``arch`` at full width off / protected / unprotected through the
-    captured step, each mode also through the eager step; hold the captured
-    runs to the launch counts, to the eager runs bit for bit and to each
-    other; then the smoke config on the card against the CPU."""
-    from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.serving import ModelBundle, ServerConfig
-
-    lm = get_config(arch)
-    cfg = ServerConfig(arch=arch, device=str(dev), dispatch="fused", n_slots=4, rows=ROWS, cols=COLS,
-                       dppu_size=4, smax=96, seed=0)
-    t0 = time.perf_counter()
-    bundle = ModelBundle(cfg, lm=lm)
-    torch.cuda.synchronize()
-    phase("bundle", arch=lm.name, layers=lm.n_layers, d_model=lm.d_model, vocab=lm.padded_vocab,
-          experts=lm.moe.n_padded if lm.moe else 0, seconds=round(time.perf_counter() - t0, 3),
-          device_gib=round(torch.cuda.memory_allocated() / 2**30, 3))
-    serve(bundle, "off", lm.vocab)  # warm-up: first launches, allocator, kernels loaded
-
+def serve_modes(bundle, smi: str, arch: str, scenarios, bist_at=None) -> dict:
+    """Serve each ``(mode, faults, inject)`` of ``scenarios`` through the
+    captured step and again through the eager step (:func:`serve`); hold
+    every captured run to the launch counts of ``arch``'s path, one capture,
+    a fault-state swap after it and the eager run bit for bit; then off's
+    tokens and logits to protected's bit for bit (the scan or ``bist_at``'s
+    BIST confirming the fault that appears) and unprotected's first logits
+    to differ.  First the decode step's calls, recorded on ``meta``, are
+    held to ``DECODE_SHAPES`` and ``EXPERT_SHAPES``, the tables the launch
+    counts and the kernel checks read.  Returns {mode: run}."""
+    lm = bundle.lm
+    hold_shapes(f"{arch} decode step", decode_shapes(lm, bundle.ftc, bundle.work, bundle.cfg.n_slots),
+                DECODE_SHAPES[arch], EXPERT_SHAPES[arch])
+    check(all(c.protected and c.dispatch == "fused" for c in bundle.ledger),
+          f"{arch}: the call ledger {bundle.ledger} holds a call off the protected fused path")
     runs = {}
     want = per_step(arch)
-    bist = [(0, 1, 30, 1), (2, 3, 31, 0), (3, 6, 20, 1)]  # 3 <= capacity 4
-    # a fault that appears before step 2, so the fault state swaps after the
-    # capture: in protected mode on PE row 5, which a 4-slot step never
-    # reaches (output row i runs on PE row i % 8), so protected still serves
-    # off's bits while the scan finds it; in unprotected mode on PE row 1
-    scenarios = (("off", (), ()), ("protected", bist, ((2, (5, 3, 30, 1)),)),
-                 ("unprotected", [(0, 0, 30, 1)], ((2, (1, 2, 29, 1)),)))
     for mode, faults, inject in scenarios:
-        run = serve(bundle, mode, lm.vocab, faults=faults, inject=inject, record_logits=True)
+        at = bist_at if mode == "protected" else None
+        run = serve(bundle, mode, lm.vocab, faults=faults, inject=inject, bist_at=at, record_logits=True)
         steps, counts = len(run["times"]), run["counts"]
         for name, n in want.items():
             check(counts[name] == n * steps, f"{arch} {mode}: {name} launched {counts[name]} times in {steps} steps")
@@ -599,7 +740,8 @@ def server_phase(dev, smi: str, arch: str):
             check(run["swaps_after_first_step"] >= 1, f"{arch} {mode}: no fault-state swap after the capture")
         shape = tuple(run["logits"][0].shape)
         check(shape == (4, 1, lm.padded_vocab), f"{mode}: logits shape {shape}")
-        eager = serve(bundle, mode, lm.vocab, faults=faults, inject=inject, capture=False, record_logits=True)
+        eager = serve(bundle, mode, lm.vocab, faults=faults, inject=inject, bist_at=at, capture=False,
+                      record_logits=True)
         check(eager["captures"] == 0 and eager["counts"] == counts,
               f"{arch} {mode}: the eager step launched {eager['counts']}, the captured {counts}")
         check(eager["tokens"].keys() == run["tokens"].keys()
@@ -624,13 +766,47 @@ def server_phase(dev, smi: str, arch: str):
           and all(np.array_equal(off["tokens"][r], prot["tokens"][r]) for r in off["tokens"]),
           f"{arch}: protected (faults <= capacity) tokens differ from off")
     check(_same_bits(off["logits"], prot["logits"]), f"{arch}: protected logits differ from off")
-    check(prot["summary"]["confirmed_faults_final"] == 4, f"{arch}: the scan did not confirm the fault of step 2")
+    check(prot["summary"]["confirmed_faults_final"] == 4, f"{arch}: the fault of step 2 was not confirmed")
     check(not torch.equal(off["logits"][0].view(torch.int16), unprot["logits"][0].view(torch.int16)),
           f"{arch}: unprotected (PE(0,0) bit 30 stuck-at-1) logits equal off")
     phase("serve_checks", arch=arch, protected_equals_off=True, unprotected_differs=True,
-          graph_equals_eager=["off", "protected", "unprotected"], compared="every step's logits, every token")
+          graph_equals_eager=["off", "protected", "unprotected"], compared="every step's logits, every token",
+          confirmed_by="BIST at step 2" if bist_at is not None else "the scan")
+    return runs
+
+
+def full_bundle(dev, arch: str):
+    """``arch``'s ModelBundle at full width: random f32 masters from seed 0,
+    bf16 working copies, 4 slots, the 8x8 array with a DPPU of 4, fused."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ModelBundle, ServerConfig
+
+    lm = get_config(arch)
+    cfg = ServerConfig(arch=arch, device=str(dev), dispatch="fused", n_slots=4, rows=ROWS, cols=COLS,
+                       dppu_size=4, smax=96, seed=0)
+    t0 = time.perf_counter()
+    bundle = ModelBundle(cfg, lm=lm)
+    torch.cuda.synchronize()
+    phase("bundle", arch=lm.name, layers=lm.n_layers, d_model=lm.d_model, vocab=lm.padded_vocab,
+          family=lm.family, attn=lm.attn_kind, norm=lm.norm, experts=lm.moe.n_padded if lm.moe else 0,
+          seconds=round(time.perf_counter() - t0, 3), device_gib=round(torch.cuda.memory_allocated() / 2**30, 3))
+    return bundle
+
+
+def server_phase(dev, smi: str, arch: str):
+    """Serve ``arch`` at full width off / protected / unprotected through the
+    captured step, each mode also through the eager step; hold the captured
+    runs to the launch counts, to the eager runs bit for bit and to each
+    other; then the smoke config on the card against the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving import ModelBundle
+
+    bundle = full_bundle(dev, arch)
+    lm, cfg = bundle.lm, bundle.cfg
+    serve(bundle, "off", lm.vocab)  # warm-up: first launches, allocator, kernels loaded
+    runs = serve_modes(bundle, smi, arch, SCENARIOS)
     plan = serve_remap_phase(bundle, smi, arch)
-    serve_counters_phase(bundle, smi, arch, runs["protected"], bist, scenarios[1][2], plan)
+    serve_counters_phase(bundle, smi, arch, runs["protected"], BIST_FAULTS, SCENARIOS[1][2], plan)
 
     # the same smoke-size server on the card and on the CPU (plain versions)
     small = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
@@ -1832,7 +2008,10 @@ def transients_phase(dev, smi, bundle) -> None:
 # the training and prefill slice: the sequence forward, the loss, AdamW, the
 # train step, checkpoints and the retrain repair
 # --------------------------------------------------------------------------- #
-PREFILL_B, PREFILL_S = 4, 512
+# (B, S) of each model's fused prefill: 4 sequences of 512 tokens; llava one
+# of 3072, a multiple of the query block that holds its 2880 patches; whisper
+# 4 of 448 tokens through the decoder over 4 x 1500 frames through the encoder
+PREFILL = {QWEN: (4, 512), GRANITE: (4, 512), MINICPM3: (4, 512), LLAVA: (1, 3072), WHISPER: (4, 448)}
 # (name, M, K, N, launches per prefill) of each model's ft_matmul calls in the
 # fused prefill: M = B·S, the head at M = B (last_only)
 PREFILL_SHAPES = {
@@ -1849,17 +2028,44 @@ PREFILL_SHAPES = {
         ("router_2048x1536x48", 2048, 1536, 48, 32),
         ("head_4x1536x49408", 4, 1536, 49408, 1),
     ),
+    MINICPM3: (  # MLA's forward expands the latent through wkv_b on the array
+        ("wq_a_2048x2560x768", 2048, 2560, 768, 62),
+        ("wq_b_2048x768x3840", 2048, 768, 3840, 62),
+        ("wkv_a_2048x2560x288", 2048, 2560, 288, 62),
+        ("wkv_b_2048x256x5120", 2048, 256, 5120, 62),
+        ("wo_2048x2560x2560", 2048, 2560, 2560, 62),
+        ("gate_up_2048x2560x6400", 2048, 2560, 6400, 62 * 2),
+        ("down_2048x6400x2560", 2048, 6400, 2560, 62),
+        ("head_4x2560x73472", 4, 2560, 73472, 1),
+    ),
+    LLAVA: (  # the projector over the 2880 patches, then the backbone at M = 3072
+        ("mm_fc1_2880x1024x4096", 2880, 1024, 4096, 1),
+        ("mm_fc2_2880x4096x4096", 2880, 4096, 4096, 1),
+        ("q_out_3072x4096x4096", 3072, 4096, 4096, 32 * 2),
+        ("kv_3072x4096x1024", 3072, 4096, 1024, 32 * 2),
+        ("gate_up_3072x4096x14336", 3072, 4096, 14336, 32 * 2),
+        ("down_3072x14336x4096", 3072, 14336, 4096, 32),
+        ("head_1x4096x32000", 1, 4096, 32000, 1),
+    ),
+    WHISPER: (  # the encoder's q/k/v/o and the decoder's cross k/v at M = 4 x 1500
+        ("enc_qkvo_cross_kv_6000x384x384", 6000, 384, 384, 4 * 4 + 4 * 2),
+        ("enc_up_6000x384x1536", 6000, 384, 1536, 4),
+        ("enc_down_6000x1536x384", 6000, 1536, 384, 4),
+        ("dec_qkvo_cross_qo_1792x384x384", 1792, 384, 384, 4 * 4 + 4 * 2),
+        ("dec_up_1792x384x1536", 1792, 384, 1536, 4),
+        ("dec_down_1792x1536x384", 1792, 1536, 384, 4),
+        ("head_4x384x51968", 4, 384, 51968, 1),
+    ),
 }
 # (name, E, M, K, N, launches per prefill) of ft_matmul_batched: M = B x the
 # expert capacity, int(1.25 * top_k * S / n_experts) = 128 slots
 PREFILL_EXPERT_SHAPES = {
-    QWEN: (),
+    **{arch: () for arch in PREFILL},
     GRANITE: (
         ("gate_up_48x512x1536x512", 48, 512, 1536, 512, 32 * 2),
         ("down_48x512x512x1536", 48, 512, 512, 1536, 32),
     ),
 }
-BIST_FAULTS = [(0, 1, 30, 1), (2, 3, 31, 0), (3, 6, 20, 1)]  # 3 <= the DPPU's 4
 # fused against twopass, last-position logits of a full-width bf16 prefill:
 # the two accumulate each product in another order, both store bf16, and the
 # one-ulp differences pass through every layer; a wrong kernel is off by the
@@ -1869,10 +2075,10 @@ TWOPASS_PREFILL_TOL = 2.0**-3  # of max |logit|
 
 def prefill_kernel_checks(dev) -> dict[str, float]:
     """``ft_matmul`` and ``ft_matmul_batched`` against their plain versions
-    at the fused prefill's shapes (M = B·S = 2048, the experts at M = 512;
-    the heads at M = 4 are the decode step's), bf16 and f32, as
-    :func:`_kernel_checks` holds them at the decode shapes.  Returns each
-    kernel's max |kernel - plain| on random operands."""
+    at every fused prefill's shapes (``PREFILL_SHAPES``; the heads at M = B
+    are decode-sized), bf16 and f32, as :func:`_kernel_checks` holds them at
+    the decode shapes.  Returns each kernel's max |kernel - plain| on random
+    operands."""
     from repro_torch.kernels.ft_matmul import (
         ft_matmul, ft_matmul_batched, ft_matmul_batched_ref, ft_matmul_ref, plan_of,
     )
@@ -1881,7 +2087,7 @@ def prefill_kernel_checks(dev) -> dict[str, float]:
     and_g, or_g = fault_grids(dev)
     launches0 = {name: k.launches for name, k in _kernels().items()}
     errs, plans, max_abs = {}, {}, {"ft_matmul": 0.0, "ft_matmul_batched": 0.0}
-    for name, m, k, n in [s[:4] for a in (QWEN, GRANITE) for s in PREFILL_SHAPES[a] if not s[0].startswith("head")]:
+    for name, m, k, n in [s[:4] for a in PREFILL_SHAPES for s in PREFILL_SHAPES[a] if not s[0].startswith("head")]:
         for dtype in (torch.bfloat16, torch.float32):
             def operands(kind: str):
                 return (_draw(g, dev, dtype, kind, (m, k), 1.0, kind == "frac_x"),
@@ -1890,11 +2096,12 @@ def prefill_kernel_checks(dev) -> dict[str, float]:
                                                                    operands, and_g, or_g, dtype)
             max_abs["ft_matmul"] = max(max_abs["ft_matmul"], err)
             plans[name] = _plan_str(plan_of(*operands("integer")))
+    b = PREFILL[GRANITE][0]
     for name, e, m, k, n, _ in PREFILL_EXPERT_SHAPES[GRANITE]:
         for dtype in (torch.bfloat16, torch.float32):
             def operands(kind: str):
                 # the (b, e, c, d) dispatch layout, copied to (e, b·c, d) as FTContext.einsum does
-                x = _draw(g, dev, dtype, kind, (PREFILL_B, e, m // PREFILL_B, k), 1.0, kind == "frac_x")
+                x = _draw(g, dev, dtype, kind, (b, e, m // b, k), 1.0, kind == "frac_x")
                 return (x.transpose(0, 1).reshape(e, m, k),
                         _draw(g, dev, dtype, kind, (e, k, n), 0.02, kind == "frac_w"))
             err, errs[f"{name} {str(dtype)[6:]}"] = _kernel_checks(
@@ -1918,35 +2125,47 @@ def _prefill_ctx(mode: str, faults, dispatch: str, dev):
     return build_ftcontext(_fault_state(faults, dev), hyca, dispatch=dispatch)
 
 
-def prefill_phase(dev, smi: str, bundle) -> dict[str, dict]:
-    """The fused prefill at full width: ``forward(last_only=True)`` on B =
-    4 sequences of S = 512 tokens through ``FTContext`` under ``fused``, the
-    reference's production prefill.  Off (the fault-free array through the
-    same kernels), protected with the 3 BIST faults (bitwise off),
-    unprotected with a stuck-at-1 on bit 30 of PE(0, 0) (differs from off),
-    and the twopass engine on the BIST faults (within TWOPASS_PREFILL_TOL
-    of fused).  ``ft_matmul`` and ``ft_matmul_batched`` launch the main
-    path's count a prefill (counted from 0 just before the protected
-    prefill, read just after); then the kernels at these shapes against
-    their plain versions and their times against the library call and the
-    bound.  Returns {kernel: per-prefill totals, with its launches}."""
+def prefill_batch(lm, dev, g=None) -> dict:
+    """The fused prefill's inputs for ``lm`` at ``PREFILL[lm.name]``: tokens,
+    and llava's patches or whisper's frames (0.02 N(0, 1))."""
+    b, s = PREFILL[lm.name]
+    batch = {"tokens": torch.randint(0, lm.vocab, (b, s), generator=g, device=dev)}
+    if lm.family == "vlm":
+        batch["patches"] = torch.randn((b, lm.n_patches, lm.d_vision), generator=g, device=dev) * 0.02
+    if lm.family == "encdec":
+        batch["frames"] = torch.randn((b, lm.enc_len, lm.d_model), generator=g, device=dev) * 0.02
+    return batch
+
+
+def prefill_modes(bundle, batch: dict, dev) -> dict:
+    """``forward(bundle.work, batch, last_only=True)`` under ``fused``.  The
+    prefill's calls, recorded on ``meta``, are first held to
+    ``PREFILL_SHAPES``.  Then, after a warm-up: off (the fault-free array
+    through the same kernels), protected with the 3 BIST faults (bitwise
+    off) and unprotected with a stuck-at-1 on bit 30 of PE(0, 0) (differs
+    from off), each launching the tables' count of each kernel (every other
+    kernel 0), counted from 0 just before and read just after; and the
+    twopass engine on the BIST faults, within TWOPASS_PREFILL_TOL of fused.
+    Returns the contexts, the prefill, each mode's logits and ms, the
+    protected prefill's launches and the twopass comparison."""
     from repro_torch.models.lm import forward
 
     lm, arch = bundle.lm, bundle.lm.name
-    t0 = time.perf_counter()
-    g = torch.Generator(device=dev).manual_seed(3)
-    tokens = torch.randint(0, lm.vocab, (PREFILL_B, PREFILL_S), generator=g, device=dev)
     kernels = _kernels()
-
-    def prefill(ctx):
-        with torch.no_grad():
-            logits, _ = forward(bundle.work, lm, {"tokens": tokens}, ftc=ctx, last_only=True)
-        torch.cuda.synchronize()
-        return logits
-
     ctxs = {"off": _prefill_ctx("protected", [], "fused", dev),
             "protected": _prefill_ctx("protected", BIST_FAULTS, "fused", dev),
             "unprotected": _prefill_ctx("unprotected", [(0, 0, 30, 1)], "fused", dev)}
+    hold_shapes(f"{arch} prefill", prefill_shapes(lm, ctxs["protected"], bundle.work, batch),
+                PREFILL_SHAPES[arch], PREFILL_EXPERT_SHAPES[arch])
+    want = {"ft_matmul": sum(s[-1] for s in PREFILL_SHAPES[arch]),
+            "ft_matmul_batched": sum(s[-1] for s in PREFILL_EXPERT_SHAPES[arch])}
+
+    def prefill(ctx):
+        with torch.no_grad():
+            logits, _ = forward(bundle.work, lm, batch, ftc=ctx, last_only=True)
+        torch.cuda.synchronize()
+        return logits
+
     prefill(ctxs["off"])  # warm-up
     out, ms = {}, {}
     for mode, ctx in ctxs.items():
@@ -1958,17 +2177,10 @@ def prefill_phase(dev, smi: str, bundle) -> dict[str, dict]:
         counts = {name: k.launches for name, k in kernels.items()}
         if mode == "protected":
             launches = counts
-        want = {"ft_matmul": sum(s[-1] for s in PREFILL_SHAPES[arch]),
-                "ft_matmul_batched": sum(s[-1] for s in PREFILL_EXPERT_SHAPES[arch])}
-        check(all(counts[n] == c for n, c in want.items()) and counts["probe_check_pair"] == 0,
-              f"{arch} prefill {mode}: launched {counts}, want {want}")
-    times = []
-    for _ in range(3):
-        t1 = time.perf_counter()
-        prefill(ctxs["protected"])
-        times.append(1e3 * (time.perf_counter() - t1))
+        check(counts == {**dict.fromkeys(kernels, 0), **want}, f"{arch} prefill {mode}: launched {counts}, want {want}")
     off, prot, unprot = out["off"], out["protected"], out["unprotected"]
-    check(tuple(off.shape) == (PREFILL_B, 1, lm.padded_vocab) and off.dtype == lm.dtype,
+    b = batch["tokens"].shape[0]
+    check(tuple(off.shape) == (b, 1, lm.padded_vocab) and off.dtype == lm.dtype,
           f"{arch} prefill: logits {tuple(off.shape)} {off.dtype}")
     check(bool(torch.isfinite(off[..., :lm.vocab].float()).all()), f"{arch} prefill off: non-finite logits")
     check(torch.equal(off.view(torch.int16), prot.view(torch.int16)), f"{arch} prefill: protected differs from off")
@@ -1980,18 +2192,59 @@ def prefill_phase(dev, smi: str, bundle) -> dict[str, dict]:
     rel = float((a - b).abs().max()) / float(a.abs().max())
     check(rel <= TWOPASS_PREFILL_TOL, f"{arch} prefill: fused vs twopass {rel} of max |logit| > {TWOPASS_PREFILL_TOL}")
     agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    return dict(ctxs=ctxs, prefill=prefill, logits=out, ms=ms, launches=launches, twopass_rel=rel,
+                twopass_agree=agree, twopass_ms=twopass_ms)
+
+
+def prefill_phase(dev, smi: str, bundle) -> dict[str, dict]:
+    """The fused prefill at full width: ``forward(last_only=True)`` on
+    ``prefill_batch`` through ``FTContext`` under ``fused``, the reference's
+    production prefill, in the modes of :func:`prefill_modes`; then the
+    kernels at the prefill's shapes, their times against the library call
+    and the bound (:func:`time_kernel_shapes`).  Returns {kernel:
+    per-prefill totals, with the launches the protected prefill made}."""
+    lm, arch = bundle.lm, bundle.lm.name
+    t0 = time.perf_counter()
+    batch = prefill_batch(lm, dev, torch.Generator(device=dev).manual_seed(3))
+    r = prefill_modes(bundle, batch, dev)
+    times = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        r["prefill"](r["ctxs"]["protected"])
+        times.append(1e3 * (time.perf_counter() - t1))
     totals = time_kernel_shapes(dev, smi, arch, PREFILL_SHAPES[arch], PREFILL_EXPERT_SHAPES[arch], "prefill")
     for name, t in totals.items():
-        t["launches"] = launches[name]
-    phase("prefill_fused", arch=arch, batch=PREFILL_B, seq=PREFILL_S, last_only=True, launches=launches,
-          protected_equals_off=True, unprotected_differs=True, fused_vs_twopass_over_max_logit=rel,
-          fused_vs_twopass_tol=TWOPASS_PREFILL_TOL, fused_twopass_argmax_agree=agree,
-          prefill_ms={**ms, "protected_runs": times, "twopass": twopass_ms},
+        t["launches"] = r["launches"][name]
+    b, s = PREFILL[arch]
+    phase("prefill_fused", arch=arch, batch=b, seq=s, last_only=True, inputs=sorted(batch),
+          launches=r["launches"], protected_equals_off=True, unprotected_differs=True,
+          fused_vs_twopass_over_max_logit=r["twopass_rel"], fused_vs_twopass_tol=TWOPASS_PREFILL_TOL,
+          fused_twopass_argmax_agree=r["twopass_agree"],
+          prefill_ms={**r["ms"], "protected_runs": times, "twopass": r["twopass_ms"]},
           kernel_ms_per_prefill={k: v["ms"] for k, v in totals.items()},
           library_ms_per_prefill={k: v["library_ms"] for k, v in totals.items()},
           bound_ms_per_prefill={k: v["bound_ms"] for k, v in totals.items()},
           phase_s=time.perf_counter() - t0, card=smi)
     return totals
+
+
+# --------------------------------------------------------------------------- #
+# the attention families: five more models at full width
+# --------------------------------------------------------------------------- #
+def family_server_phase(dev, smi: str, arch: str):
+    """Serve ``arch`` at full width (random weights from seed 0, bf16
+    working copies) through the captured step, as :func:`server_phase`
+    serves qwen and granite: off, protected and unprotected, each again
+    through the eager step (:func:`serve_modes`).  whisper's
+    cross-attention projects K and V over all 4 x 1500 encoder rows, which
+    reach every PE row: a fault that appears at step 2 corrupts its outputs
+    until the scan confirms it (as in the reference), so its protected run
+    has a BIST confirm that fault at step 2, and protected is held to off
+    at every step."""
+    bundle = full_bundle(dev, arch)
+    serve(bundle, "off", bundle.lm.vocab)  # warm-up
+    runs = serve_modes(bundle, smi, arch, SCENARIOS, bist_at=2 if arch == WHISPER else None)
+    return bundle, runs
 
 
 # qwen1.5-0.5b training at the reference CLI's defaults: batch 8, seq 128,
@@ -2267,6 +2520,16 @@ def main() -> None:
         del bundle, runs
         gc.collect()
         torch.cuda.empty_cache()  # the next model's bundle gets the card's memory
+    for arch in FAMILIES:  # the attention families, one bundle at a time
+        bundle, runs = family_server_phase(dev, smi, arch)
+        for name, n in runs["protected"]["counts"].items():
+            launches[name] += n
+        per_path[arch] = timing_phase(dev, smi, arch, runs)
+        if arch in PREFILL:  # the families whose forward runs other matmuls than their decode
+            per_prefill[arch] = prefill_phase(dev, smi, bundle)
+        del bundle, runs
+        gc.collect()
+        torch.cuda.empty_cache()
 
     def matmul_row(name: str, replaces: str) -> dict:
         paths = {arch: t[name] for arch, t in per_path.items() if name in t}

@@ -5,9 +5,10 @@ reference's on-disk format.
     ``.tmp-`` staging directory and its manifest hash verifies, so a killed
     writer never leaves a half checkpoint that restore would pick up;
   * one ``.npy`` file per leaf, named by the reference's key path joined by
-    ``__``.  A layer stack (``blocks``, ``dense_blocks``), a list of
-    per-layer dicts here, is written as the reference's stacked leaves
-    (one file per leaf, the layers on its leading axis) and split again on
+    ``__``.  A layer stack (``blocks``, ``dense_blocks``, the encoder's
+    ``layers``), a list of per-layer dicts here, is written as the
+    reference's stacked leaves (one file per leaf, the layers on its
+    leading axis) and split again on
     restore (:func:`repro_torch.tree.stacked_leaves`), so names, shapes,
     dtypes, digests and ``tree_hash`` are the reference's, and a checkpoint
     written by either package restores in the other;

@@ -1,8 +1,8 @@
 """Architecture registry: ``arch`` id → :class:`~repro_torch.models.lm.LMConfig`.
 
-The port has qwen1.5-0.5b (dense), granite-moe-3b-a800m and deepseek-moe-16b
-(moe); every other id of the JAX registry is known and raises ``KeyError``
-naming the slice that brings its model family.
+The port has eight of the JAX registry's ten ids: the dense, moe, vlm and
+encdec families.  The two recurrent ones are known and raise ``KeyError``
+naming the slice that brings their model family.
 """
 from __future__ import annotations
 
@@ -11,20 +11,20 @@ import importlib
 from repro_torch.models.lm import LMConfig
 
 _MODULES = {
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
     "qwen1.5-0.5b": "repro_torch.configs.qwen1p5_0p5b",
-    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b",
+    "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
+    "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
+    "granite-8b": "repro_torch.configs.granite_8b",
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b",
+    "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
 }
 
 # the rest of the JAX registry, and the slice that ports each family
 _LATER = {
-    "whisper-tiny": "the encoder-decoder slice",
-    "zamba2-1.2b": "the hybrid (Mamba2) slice",
-    "minicpm3-4b": "the MLA slice",
-    "starcoder2-3b": "the dense-variants slice (LayerNorm, non-gated FFN)",
-    "granite-8b": "the dense-variants slice",
-    "rwkv6-7b": "the SSM (RWKV6) slice",
-    "llava-next-mistral-7b": "the multimodal slice",
+    "zamba2-1.2b": "the recurrent slice (hybrid: Mamba2 chunked SSD, shared attention)",
+    "rwkv6-7b": "the recurrent slice (SSM: RWKV6)",
 }
 
 ARCH_IDS = tuple(_MODULES)

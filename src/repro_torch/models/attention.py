@@ -1,8 +1,9 @@
-"""Grouped-query attention (covers MHA): projections, the blockwise causal
-attention of a sequence (prefill and training), one-token decode and the KV
-cache.  Scores and softmax run in f32, as in the JAX package; attention
-itself is plain PyTorch (the JAX package left it to XLA, outside any Pallas
-kernel).  MLA comes with a later slice.
+"""Attention: grouped-query attention (covers MHA) and multi-head latent
+attention (MLA, MiniCPM3 / DeepSeek-V2 style).  Each has its projections,
+the blockwise causal attention of a sequence (prefill and training),
+one-token decode and its cache.  Scores and softmax run in f32, as in the
+JAX package; attention itself is plain PyTorch (the JAX package left it to
+XLA, outside any Pallas kernel).
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.ftcontext import site_matmul
-from repro_torch.models.layers import Params, apply_rope, dense_init
+from repro_torch.models.layers import Params, apply_rope, dense_init, rmsnorm, rmsnorm_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,3 +139,122 @@ def gqa_cache_init(cfg: AttnConfig, batch: int, smax: int, dtype=torch.bfloat16,
         "v": torch.zeros((batch, smax, cfg.n_kv, cfg.hd), dtype=dtype, device=device),
         "idx": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+
+
+# --------------------------------------------------------------------------- #
+# MLA — multi-head latent attention (MiniCPM3 / DeepSeek-V2)
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    q_lora: int = 768
+    kv_lora: int = 256
+    d_nope: int = 64
+    d_rope: int = 32
+    d_v: int = 64
+    rope_theta: float = 10000.0
+    q_block: int = 512
+
+
+def mla_init(gen: torch.Generator, cfg: MLAConfig, *, device="cuda") -> Params:
+    h, dn, dr, dv = cfg.n_heads, cfg.d_nope, cfg.d_rope, cfg.d_v
+    return {
+        "wq_a": dense_init(gen, cfg.d_model, cfg.q_lora, device=device),
+        "q_norm": rmsnorm_init(cfg.q_lora, device=device),
+        "wq_b": dense_init(gen, cfg.q_lora, h * (dn + dr), device=device),
+        "wkv_a": dense_init(gen, cfg.d_model, cfg.kv_lora + dr, device=device),
+        "kv_norm": rmsnorm_init(cfg.kv_lora, device=device),
+        "wkv_b": dense_init(gen, cfg.kv_lora, h * (dn + dv), device=device),
+        "wo": dense_init(gen, h * dv, cfg.d_model, device=device),
+    }
+
+
+def _mla_qkr(x, p, cfg: MLAConfig, positions, ftc=None):
+    """(q_nope (B,S,H,dn), q_rope (B,S,H,dr), c_kv (B,S,kv_lora), k_rope
+    (B,S,dr)): the query through its LoRA pair, the compressed KV latent and
+    the one RoPE key that all heads share."""
+    b, s, _ = x.shape
+    h, dn, dr = cfg.n_heads, cfg.d_nope, cfg.d_rope
+    mm = site_matmul(ftc, "attn.qkv")
+    q = mm(rmsnorm(mm(x, p["wq_a"]), p["q_norm"]), p["wq_b"]).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    kv_a = mm(x, p["wkv_a"])
+    c_kv = rmsnorm(kv_a[..., :cfg.kv_lora], p["kv_norm"])
+    k_rope = apply_rope(kv_a[..., cfg.kv_lora:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_forward(x, p, cfg: MLAConfig, positions=None, ftc=None) -> torch.Tensor:
+    """MLA over a whole sequence x: (B,S,d), causal, in query blocks of
+    ``q_block`` rows; the keys and values are expanded from the latent
+    through ``wkv_b`` on the array (site attn.qkv)."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    h, dn, dr, dv = cfg.n_heads, cfg.d_nope, cfg.d_rope, cfg.d_v
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(x, p, cfg, positions, ftc)
+    kv = site_matmul(ftc, "attn.qkv")(c_kv, p["wkv_b"]).reshape(b, s, h, dn + dv)
+    k_nope32, v32 = kv[..., :dn].to(torch.float32), kv[..., dn:].to(torch.float32)
+    k_rope32 = k_rope.to(torch.float32)
+    scale = 1.0 / ((dn + dr) ** 0.5)
+    qb = min(cfg.q_block, s)
+    if s % qb:
+        raise ValueError(f"sequence length {s} is not a multiple of the query block {qb}")
+    kpos = torch.arange(s, device=x.device)
+    neg = torch.full((), -1e30, device=x.device)
+    outs = []
+    for blk in range(s // qb):
+        rows = slice(blk * qb, (blk + 1) * qb)
+        qpos = blk * qb + torch.arange(qb, device=x.device)
+        sc = (torch.einsum("bqhd,bshd->bqhs", q_nope[:, rows].to(torch.float32), k_nope32)
+              + torch.einsum("bqhd,bsd->bqhs", q_rope[:, rows].to(torch.float32), k_rope32)) * scale
+        mask = kpos[None, :] <= qpos[:, None]
+        sc = torch.where(mask[None, :, None, :], sc, neg)
+        wts = torch.softmax(sc, dim=-1)
+        outs.append(torch.einsum("bqhs,bshd->bqhd", wts, v32).to(x.dtype))
+    out = torch.cat(outs, dim=1).reshape(b, s, h * dv)
+    return site_matmul(ftc, "attn.out")(out, p["wo"])
+
+
+def mla_cache_init(cfg: MLAConfig, batch: int, smax: int, dtype=torch.bfloat16, *, device="cuda") -> Params:
+    return {
+        "c_kv": torch.zeros((batch, smax, cfg.kv_lora), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, smax, cfg.d_rope), dtype=dtype, device=device),
+        "idx": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def mla_decode(x, p, cfg: MLAConfig, cache: Params, ftc=None) -> tuple[torch.Tensor, Params]:
+    """Absorbed-matmul decode: attention runs in the compressed latent space,
+    so the cache holds (kv_lora + d_rope) values a token.
+
+    The latent einsums on ``w_uk`` / ``w_uv`` (views of ``wkv_b``) run off
+    the array, as in the reference: ``wkv_b`` is on it in
+    :func:`mla_forward`; here the q-side projections and ``wo`` are.  The
+    reference's einsums promote a bf16 ``w_uk`` / ``w_uv`` and an f32
+    operand to f32; here they are cast to f32 where it promotes.  The cache
+    is updated in place and returned, ``idx`` advancing after its last read
+    (see :func:`gqa_decode`)."""
+    b = x.shape[0]
+    idx = cache["idx"]
+    h, dn, dr, dv = cfg.n_heads, cfg.d_nope, cfg.d_rope, cfg.d_v
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkr(x, p, cfg, idx[:, None], ftc)
+    bidx = torch.arange(b, device=x.device)
+    c_cache, r_cache = cache["c_kv"], cache["k_rope"]
+    c_cache[bidx, idx.long()] = c_kv_new[:, 0].to(c_cache.dtype)
+    r_cache[bidx, idx.long()] = k_rope_new[:, 0].to(r_cache.dtype)
+    wkv_b = p["wkv_b"].reshape(cfg.kv_lora, h, dn + dv)
+    w_uk, w_uv = wkv_b[..., :dn].to(torch.float32), wkv_b[..., dn:].to(torch.float32)  # (L,H,dn), (L,H,dv)
+    q_abs = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].to(torch.float32), w_uk)
+    scale = 1.0 / ((dn + dr) ** 0.5)
+    c32 = c_cache.to(torch.float32)
+    sc = (torch.einsum("bhl,bsl->bhs", q_abs, c32)
+          + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].to(torch.float32), r_cache.to(torch.float32))) * scale
+    valid = torch.arange(c_cache.shape[1], device=x.device)[None, :] <= idx[:, None]
+    sc = torch.where(valid[:, None, :], sc, torch.full((), -1e30, device=x.device))
+    wts = torch.softmax(sc, dim=-1)
+    ctx = torch.einsum("bhs,bsl->bhl", wts, c32)
+    out = torch.einsum("bhl,lhd->bhd", ctx, w_uv).reshape(b, 1, h * dv).to(x.dtype)
+    idx.add_(1)
+    return site_matmul(ftc, "attn.out")(out, p["wo"]), cache

@@ -5,6 +5,7 @@ JAX package exactly, so both compute the same function.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -40,6 +41,27 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return x * inv * g.to(x.dtype)
 
 
+def layernorm_init(d: int, *, device="cuda") -> Params:
+    return {"g": torch.ones((d,), dtype=torch.float32, device=device),
+            "b": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
+    # the mean in f32, cast to x.dtype and subtracted in x.dtype; the variance
+    # from the f32 copy against the cast mean; inv cast to x.dtype — the JAX
+    # package's order
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True).to(x.dtype)
+    var = (x32 - mu.to(torch.float32)).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return (x - mu) * inv * p["g"].to(x.dtype) + p["b"].to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form of GELU, ``jax.nn.gelu``'s default."""
+    return F.gelu(x, approximate="tanh")
+
+
 def rope_freqs(head_dim: int, theta: float = 10000.0, *, device="cuda") -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     return 1.0 / (theta ** exps)
@@ -54,6 +76,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, *, device="cuda") -> torch.Tensor:
+    """(n, d) f32 table: sin on the even features, cos on the odd ones."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device) * (-math.log(10000.0) / d))
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 def ffn_init(gen: torch.Generator, d: int, d_ff: int, gated: bool = True, *, device="cuda") -> Params:

@@ -1,39 +1,52 @@
 """LM composer: config schema, init, the sequence forward and its loss
-(prefill and training), KV cache and one-token decode.
+(prefill and training), the decode cache and one-token decode.
 
-The dense family (qwen1.5-0.5b) and the MoE family (granite-moe-3b-a800m,
-deepseek-moe-16b) are ported, with GQA attention and RMSNorm; the other
-families raise ``NotImplementedError`` until their slice lands.
+Ported families: dense (qwen1.5-0.5b, granite-8b, starcoder2-3b,
+minicpm3-4b), moe (granite-moe-3b-a800m, deepseek-moe-16b), vlm
+(llava-next-mistral-7b: the projected patches spliced over the prompt's
+prefix, decoded as dense) and encdec (whisper-tiny: an encoder over
+precomputed frames, decoder layers with cross-attention), with GQA or MLA
+attention, RMSNorm or LayerNorm, gated or plain FFNs.  The recurrent
+families (ssm, hybrid) raise ``NotImplementedError`` until their slice
+lands.
 
 Params are nested dicts of tensors in the JAX package's layout (``w`` is
-``(d_in, d_out)``, ``x @ w``), except that the layer stack is a list of
-per-layer dicts walked by a Python loop instead of arrays stacked on a
-leading layer axis.  Masters are float32; :func:`cast_params` makes the
-``cfg.dtype`` working copies that :func:`decode_step` reads, while
-:func:`forward` and :func:`loss_fn` take the masters and cast them inside, so
-that gradients reach them.  :func:`params_from_numpy` turns the JAX param
-pytree (as numpy arrays) into this layout and :func:`params_to_numpy` turns
-it back, so both packages can run, and compare, the same weights.
+``(d_in, d_out)``, ``x @ w``), except that a layer stack (``blocks``,
+``dense_blocks``, ``encoder["layers"]``) is a list of per-layer dicts walked
+by a Python loop instead of arrays stacked on a leading layer axis.  Masters
+are float32; :func:`cast_params` makes the ``cfg.dtype`` working copies that
+:func:`decode_step` reads, while :func:`forward` and :func:`loss_fn` take
+the masters and cast them inside, so that gradients reach them.
+:func:`params_from_numpy` turns the JAX param pytree (as numpy arrays) into
+this layout and :func:`params_to_numpy` turns it back, so both packages can
+run, and compare, the same weights.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.core.ftcontext import FTContext, site_matmul
-from repro_torch.models.attention import AttnConfig, gqa_cache_init, gqa_decode, gqa_forward, gqa_init
+from repro_torch.models import encdec as ed
+from repro_torch.models.attention import (
+    AttnConfig, gqa_cache_init, gqa_decode, gqa_forward, gqa_init, mla_cache_init, mla_decode, mla_forward,
+    mla_init,
+)
+from repro_torch.models.frontends import audio_frontend, mm_project, mm_projector_init, splice_patches
 from repro_torch.models.layers import (
-    Params, cross_entropy, embed_init, ffn, ffn_init, rmsnorm, rmsnorm_init, streamed_cross_entropy,
+    Params, cross_entropy, embed_init, ffn, ffn_init, gelu, layernorm, layernorm_init, rmsnorm, rmsnorm_init,
+    streamed_cross_entropy,
 )
 from repro_torch.models.moe import moe_forward, moe_init
-from repro_torch.tree import STACKED, tree_map
+from repro_torch.tree import STACKED, tree_leaves, tree_map
 
-_ACTS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"), "relu": F.relu}
+_ACTS = {"silu": F.silu, "gelu": gelu, "relu": F.relu}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,32 +104,51 @@ class LMConfig:
         )
 
 
+PORTED_FAMILIES = ("dense", "moe", "vlm", "encdec")
+
+
 def _require_ported(cfg: LMConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.attn_kind != "gqa" or cfg.norm != "rms":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family={cfg.family!r} attn={cfg.attn_kind!r} norm={cfg.norm!r} "
-            f"comes with a later slice; the port has the dense and moe families "
-            f"with GQA attention and RMSNorm"
+            f"{cfg.name}: family={cfg.family!r} comes with the recurrent slice (Mamba2, RWKV6); "
+            f"the port has the families {PORTED_FAMILIES}"
         )
+
+
+# --------------------------------------------------------------------------- #
+# norm dispatch
+# --------------------------------------------------------------------------- #
+def _norm_init(cfg: LMConfig, d: int, device):
+    return rmsnorm_init(d, device=device) if cfg.norm == "rms" else layernorm_init(d, device=device)
+
+
+def _norm(x, p, cfg: LMConfig):
+    return rmsnorm(x, p) if cfg.norm == "rms" else layernorm(x, p)
 
 
 # --------------------------------------------------------------------------- #
 # params
 # --------------------------------------------------------------------------- #
+def _attn_init(gen: torch.Generator, cfg: LMConfig, device) -> Params:
+    if cfg.attn_kind == "mla":
+        return mla_init(gen, cfg.mla, device=device)
+    return gqa_init(gen, cfg.attn_cfg, device=device)
+
+
 def _dense_block_init(gen: torch.Generator, cfg: LMConfig, d_ff: int, device) -> Params:
     return {
-        "ln1": rmsnorm_init(cfg.d_model, device=device),
-        "attn": gqa_init(gen, cfg.attn_cfg, device=device),
-        "ln2": rmsnorm_init(cfg.d_model, device=device),
+        "ln1": _norm_init(cfg, cfg.d_model, device),
+        "attn": _attn_init(gen, cfg, device),
+        "ln2": _norm_init(cfg, cfg.d_model, device),
         "ffn": ffn_init(gen, cfg.d_model, d_ff, gated=cfg.gated_ffn, device=device),
     }
 
 
 def _moe_block_init(gen: torch.Generator, cfg: LMConfig, device) -> Params:
     return {
-        "ln1": rmsnorm_init(cfg.d_model, device=device),
-        "attn": gqa_init(gen, cfg.attn_cfg, device=device),
-        "ln2": rmsnorm_init(cfg.d_model, device=device),
+        "ln1": _norm_init(cfg, cfg.d_model, device),
+        "attn": _attn_init(gen, cfg, device),
+        "ln2": _norm_init(cfg, cfg.d_model, device),
         "moe": moe_init(gen, cfg.moe, device=device),
     }
 
@@ -125,50 +157,56 @@ def init_params(gen: torch.Generator, cfg: LMConfig, *, device=None) -> Params:
     """Random f32 master params from a seeded ``torch.Generator``, on the
     generator's device (or ``device``, which must match it).  The moe family
     has ``blocks`` of MoE blocks and, when ``first_k_dense > 0``, the dense
-    ``dense_blocks`` that sit below them."""
+    ``dense_blocks`` that sit below them; vlm adds the projector
+    ``mm_proj``; encdec has the ``encoder`` and decoder layers as
+    ``blocks``."""
     _require_ported(cfg)
     device = gen.device if device is None else torch.device(device)
     p: Params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, device=device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, cfg.padded_vocab, cfg.d_model, device=device)
-    p["final_norm"] = rmsnorm_init(cfg.d_model, device=device)
-    if cfg.family == "dense":
+    p["final_norm"] = _norm_init(cfg, cfg.d_model, device)
+    if cfg.family in ("dense", "vlm"):
         p["blocks"] = [_dense_block_init(gen, cfg, cfg.d_ff, device) for _ in range(cfg.n_layers)]
-        return p
-    p["blocks"] = [_moe_block_init(gen, cfg, device) for _ in range(cfg.n_layers - cfg.first_k_dense)]
-    if cfg.first_k_dense:
-        p["dense_blocks"] = [_dense_block_init(gen, cfg, cfg.dense_d_ff or cfg.d_ff, device)
-                             for _ in range(cfg.first_k_dense)]
+        if cfg.family == "vlm":
+            p["mm_proj"] = mm_projector_init(gen, cfg.d_vision, cfg.d_model, device=device)
+    elif cfg.family == "encdec":
+        p["encoder"] = ed.encoder_init(gen, cfg.n_enc_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, device=device)
+        p["blocks"] = [ed.decoder_layer_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_ff, device=device)
+                       for _ in range(cfg.n_layers)]
+    else:
+        p["blocks"] = [_moe_block_init(gen, cfg, device) for _ in range(cfg.n_layers - cfg.first_k_dense)]
+        if cfg.first_k_dense:
+            p["dense_blocks"] = [_dense_block_init(gen, cfg, cfg.dense_d_ff or cfg.d_ff, device)
+                                 for _ in range(cfg.first_k_dense)]
     return p
 
 
 def params_from_numpy(tree: dict, device="cuda") -> Params:
     """The JAX param pytree, handed over as nested dicts of numpy arrays
-    (``jax.tree.map(np.asarray, params)``), in this package's layout: the
-    stacked ``blocks`` and ``dense_blocks`` arrays become one dict per layer."""
-    def to_t(a):
-        return torch.from_numpy(np.array(a)).to(device)
+    (``jax.tree.map(np.asarray, params)``), in this package's layout: each
+    layer stack (a key of :data:`~repro_torch.tree.STACKED`: ``blocks``,
+    ``dense_blocks``, the encoder's ``layers``) becomes one dict per layer."""
+    def conv(t):
+        if not isinstance(t, dict):
+            return torch.from_numpy(np.array(t)).to(device)
+        return {k: [conv(tree_map(lambda a, i=i: a[i], v)) for i in range(len(tree_leaves(v)[0]))]
+                if k in STACKED else conv(v) for k, v in t.items()}
 
-    out = {k: tree_map(to_t, v) for k, v in tree.items() if k not in STACKED}
-    for key in STACKED:
-        if key in tree:
-            stack = tree[key]
-            out[key] = [tree_map(lambda a, i=i: to_t(a[i]), stack) for i in range(len(stack["ln1"]))]
-    return out
+    return conv(tree)
 
 
 def params_to_numpy(params: Params) -> dict:
     """The inverse of :func:`params_from_numpy`: nested dicts of numpy
-    arrays in the JAX package's layout, the per-layer ``blocks`` and
-    ``dense_blocks`` dicts stacked on a leading layer axis."""
-    def to_np(t):
-        return t.detach().cpu().numpy()
+    arrays in the JAX package's layout, each layer stack's per-layer dicts
+    stacked on a leading layer axis."""
+    def conv(t):
+        if not isinstance(t, dict):
+            return t.detach().cpu().numpy()
+        return {k: stack_layers([conv(lp) for lp in v]) if k in STACKED and isinstance(v, list) else conv(v)
+                for k, v in t.items()}
 
-    out = {k: tree_map(to_np, v) for k, v in params.items() if k not in STACKED}
-    for key in STACKED:
-        if key in params:
-            out[key] = stack_layers([tree_map(to_np, lp) for lp in params[key]])
-    return out
+    return conv(params)
 
 
 def stack_layers(layers: list):
@@ -199,35 +237,54 @@ def forward(
     last_only: bool = False,
     return_hidden: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits, aux_loss).  batch: {"tokens": (B, S) int}.
+    """Returns (logits, aux_loss).  batch: {"tokens": (B, S) int} [+
+    "frames" (B, enc_len, d) for encdec, "patches" (B, n_patches,
+    d_vision) for vlm].
 
     ``params`` are the f32 masters (or working copies already in
     ``cfg.dtype``): they are cast to ``cfg.dtype`` here, inside whatever is
     differentiated, as the reference's ``_cast`` does.  Every weight matmul
     of the protected layer prefix and the LM head routes through ``ftc``;
-    the moe family's first-k dense blocks run with the whole ``ftc``.
-    ``last_only``: production prefill, the logits of the last position only
-    (the (B, S, V) tensor is never built).  ``return_hidden``: the final
-    normed hidden state instead of the logits."""
+    the moe family's first-k dense blocks, the multimodal projector and the
+    encoder run with the whole ``ftc``.  ``last_only``: production prefill,
+    the logits of the last position only (the (B, S, V) tensor is never
+    built).  ``return_hidden``: the final normed hidden state instead of
+    the logits."""
     _require_ported(cfg)
     p = cast_params(params, cfg.dtype)
     tokens = batch["tokens"].long()
     x = p["embed"][tokens]
+    if cfg.family == "vlm" and "patches" in batch:
+        x = splice_patches(x, mm_project(batch["patches"].to(cfg.dtype), p["mm_proj"], ftc))
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     act = _ACTS[cfg.act]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    xcfg = ed.CrossAttnConfig(cfg.d_model, cfg.n_heads)
+
+    def attn(x, lp, fc):
+        if cfg.attn_kind == "mla":
+            return mla_forward(x, lp, cfg.mla, positions, fc)
+        return gqa_forward(x, lp, cfg.attn_cfg, positions, fc)
 
     def dense_block(x, lp, fc):
-        x = x + gqa_forward(rmsnorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, positions, fc)
-        return x + ffn(rmsnorm(x, lp["ln2"]), lp["ffn"], act=act, ftc=fc)
+        x = x + attn(_norm(x, lp["ln1"], cfg), lp["attn"], fc)
+        return x + ffn(_norm(x, lp["ln2"], cfg), lp["ffn"], act=act, ftc=fc)
 
     def moe_block(x, aux, lp, fc):
-        x = x + gqa_forward(rmsnorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, positions, fc)
-        y, ai = moe_forward(rmsnorm(x, lp["ln2"]), lp["moe"], cfg.moe, ftc=fc)
+        x = x + attn(_norm(x, lp["ln1"], cfg), lp["attn"], fc)
+        y, ai = moe_forward(_norm(x, lp["ln2"], cfg), lp["moe"], cfg.moe, ftc=fc)
         return x + y, aux + ai
 
-    dense, moe = _remat(dense_block, cfg), _remat(moe_block, cfg)
+    def decoder_block(x, enc, lp, fc):
+        x = x + gqa_forward(layernorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, positions, fc)
+        x = x + ed.cross_attn(layernorm(x, lp["ln_x"]), enc, lp["xattn"], xcfg, fc)
+        return x + ffn(layernorm(x, lp["ln2"]), lp["ffn"], act=_ACTS["gelu"], ftc=fc)
+
+    dense, moe, decoder = _remat(dense_block, cfg), _remat(moe_block, cfg), _remat(decoder_block, cfg)
+    if cfg.family == "encdec":
+        enc = ed.encoder_forward(audio_frontend(batch["frames"].to(cfg.dtype)), p["encoder"], cfg.d_model,
+                                 cfg.n_heads, ftc=ftc)
     if cfg.first_k_dense:
         for lp in p["dense_blocks"]:
             x = dense(x, lp, ftc)
@@ -236,6 +293,8 @@ def forward(
         for i in range(lo, hi):
             if cfg.family == "moe":
                 x, aux = moe(x, aux, p["blocks"][i], fc)
+            elif cfg.family == "encdec":
+                x = decoder(x, enc, p["blocks"][i], fc)
             else:
                 x = dense(x, p["blocks"][i], fc)
     if cfg.family == "moe":
@@ -243,7 +302,7 @@ def forward(
     if last_only:
         x = x[:, -1:]
     if return_hidden:
-        return rmsnorm(x, p["final_norm"]), aux
+        return _norm(x, p["final_norm"], cfg), aux
     return _logits(x, p, cfg, ftc), aux
 
 
@@ -267,13 +326,23 @@ def loss_fn(params: Params, cfg: LMConfig, batch: dict, *, aux_weight: float = 0
 # serve: cache init + single-token decode
 # --------------------------------------------------------------------------- #
 def init_cache(cfg: LMConfig, batch: int, smax: int, dtype=torch.bfloat16, *, device="cuda") -> Params:
-    """{"attn": [per-layer {k, v: (B,Smax,Hk,D), idx: (B,)}]} for the main
-    stack, plus "attn_dense" for the first ``first_k_dense`` layers."""
+    """{"attn": [per-layer cache]} for the main stack: GQA {k, v:
+    (B,Smax,Hk,D), idx: (B,)} or MLA {c_kv: (B,Smax,kv_lora), k_rope:
+    (B,Smax,d_rope), idx: (B,)}; plus "attn_dense" for the first
+    ``first_k_dense`` layers, and for encdec "enc", the encoder output
+    (B, enc_len, d) that cross-attention reads (zeros until a caller fills
+    it)."""
     _require_ported(cfg)
 
     def layers(n):
+        if cfg.attn_kind == "mla":
+            return [mla_cache_init(cfg.mla, batch, smax, dtype, device=device) for _ in range(n)]
         return [gqa_cache_init(cfg.attn_cfg, batch, smax, dtype, device=device) for _ in range(n)]
 
+    if cfg.family == "encdec":
+        return {"attn": ed.decoder_cache_init(cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.n_layers, batch, smax, dtype,
+                                              device=device),
+                "enc": torch.zeros((batch, cfg.enc_len, cfg.d_model), dtype=dtype, device=device)}
     cache: Params = {"attn": layers(cfg.n_layers - cfg.first_k_dense)}
     if cfg.first_k_dense:
         cache["attn_dense"] = layers(cfg.first_k_dense)
@@ -293,27 +362,41 @@ def _layer_splits(n: int, ftc: FTContext | None) -> list[tuple[int, int, FTConte
     return [(0, k, ftc), (k, n, None)]
 
 
+# the matmuls without batch dims: what jax.checkpoint_policies.
+# checkpoint_dots_with_no_batch_dims keeps (a 2-D matmul lowers to one of
+# these; einsums with batch dims lower to bmm and are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(f, cfg: LMConfig):
     """One layer's body under ``torch.utils.checkpoint`` when ``cfg.remat``
-    (the reference's ``jax.checkpoint``: the backward recomputes the layer's
-    activations instead of keeping them).  Without gradients it runs plain."""
+    (the reference's ``jax.checkpoint``).  ``remat_policy="full"``: the
+    backward recomputes the layer's activations instead of keeping them;
+    ``"dots"``: the outputs of matmuls without batch dims are kept and the
+    rest is recomputed, the attention ``bmm``s included (a selective
+    checkpoint).  Either way the values are those of no remat, bit for bit.
+    Without gradients it runs plain."""
     if not cfg.remat:
         return f
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} (keep the matmul outputs, recompute the rest) is not "
-            f"ported; it waits for ROADMAP A6.  remat_policy='full' recomputes every layer"
-        )
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; known: full, dots")
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
     def g(*args):
         if not torch.is_grad_enabled():
             return f(*args)
-        return checkpoint(f, *args, use_reentrant=False)
+        return checkpoint(f, *args, use_reentrant=False, **kw)
     return g
 
 
 def _logits(x, params, cfg: LMConfig, ftc: FTContext | None = None):
-    x = rmsnorm(x, params["final_norm"])
+    x = _norm(x, params["final_norm"], cfg)
     table = params.get("lm_head", params["embed"])
     # table.T is a strided view of the tied table: the head matmul reads it
     # through its strides, never through a transposed copy
@@ -343,30 +426,41 @@ def decode_step(
     Every weight matmul of the protected layer prefix and the LM head routes
     through ``ftc``: attention projections, FFN, MoE router and experts.  The
     moe family's first-k dense blocks run with the whole ``ftc``, below the
-    split main stack, as in the JAX package.  The KV cache is updated in
-    place, lengths included, and the same dict is returned (see
+    split main stack, as in the JAX package.  The encdec family's
+    cross-attention projects K and V from ``cache["enc"]`` on every step,
+    on the array.  The KV cache is updated in place, lengths included, and
+    the same dict is returned (see
     :func:`~repro_torch.models.attention.gqa_decode`): the port's
     counterpart of the reference step's donated cache.
     """
     _require_ported(cfg)
     x = params["embed"][batch["token"].long()]
     act = _ACTS[cfg.act]
+    xcfg = ed.CrossAttnConfig(cfg.d_model, cfg.n_heads)
+
+    def attn(x, lp, c, fc):
+        if cfg.attn_kind == "mla":
+            return mla_decode(x, lp, cfg.mla, c, fc)[0]
+        return gqa_decode(x, lp, cfg.attn_cfg, c, fc)[0]
 
     def dense_block(x, lp, c, fc):
-        h, _ = gqa_decode(rmsnorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, c, fc)
-        x = x + h
-        return x + ffn(rmsnorm(x, lp["ln2"]), lp["ffn"], act=act, ftc=fc)
+        x = x + attn(_norm(x, lp["ln1"], cfg), lp["attn"], c, fc)
+        return x + ffn(_norm(x, lp["ln2"], cfg), lp["ffn"], act=act, ftc=fc)
 
     def moe_block(x, lp, c, fc):
-        h, _ = gqa_decode(rmsnorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, c, fc)
-        x = x + h
-        y, _ = moe_forward(rmsnorm(x, lp["ln2"]), lp["moe"], cfg.moe, ftc=fc)
+        x = x + attn(_norm(x, lp["ln1"], cfg), lp["attn"], c, fc)
+        y, _ = moe_forward(_norm(x, lp["ln2"], cfg), lp["moe"], cfg.moe, ftc=fc)
         return x + y
+
+    def decoder_block(x, lp, c, fc):
+        x = x + gqa_decode(layernorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, c, fc)[0]
+        x = x + ed.cross_attn(layernorm(x, lp["ln_x"]), cache["enc"], lp["xattn"], xcfg, fc)
+        return x + ffn(layernorm(x, lp["ln2"]), lp["ffn"], act=_ACTS["gelu"], ftc=fc)
 
     if cfg.first_k_dense:
         for lp, c in zip(params["dense_blocks"], cache["attn_dense"]):
             x = dense_block(x, lp, c, ftc)
-    block = moe_block if cfg.family == "moe" else dense_block
+    block = {"moe": moe_block, "encdec": decoder_block}.get(cfg.family, dense_block)
     for lo, hi, fc in _layer_splits(cfg.n_layers - cfg.first_k_dense, ftc):
         for i in range(lo, hi):
             x = block(x, params["blocks"][i], cache["attn"][i], fc)

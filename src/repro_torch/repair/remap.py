@@ -57,10 +57,10 @@ def weight_salience(params, cols: int) -> np.ndarray:
     class).  The serving ModelBundle's one plan for all sites.
 
     ``params`` in this package's layout (one dict per layer) are read as the
-    reference reads its stacked params: each leaf of ``blocks`` and
-    ``dense_blocks`` stacked over the layers (so a norm scale counts as a
-    (L, d) weight, and a column norm runs over every layer's rows), leaves
-    in sorted-key order.  The norms are numpy's on the f32 leaves, so the
+    reference reads its stacked params: each leaf of a layer stack
+    (``blocks``, ``dense_blocks``, the encoder's ``layers``) stacked over
+    the layers (so a norm scale counts as a (L, d) weight, and a column
+    norm runs over every layer's rows), leaves in sorted-key order.  The norms are numpy's on the f32 leaves, so the
     result is the reference's bit for bit."""
     s = np.zeros(cols, np.float64)
     for a in _leaves(params):

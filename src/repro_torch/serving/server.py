@@ -362,9 +362,14 @@ class ModelBundle:
         return step.logits, cache
 
     def reset_fn(self, cache: Params, slot: int) -> Params:
-        """Zero one slot of every layer's KV cache, every part of it (the
-        main stack's and the first-k dense blocks'), in place."""
+        """Zero one slot of the cache, every part of it, in place: each
+        layer's KV cache (the main stack's and the first-k dense blocks'),
+        and the encdec encoder output ``enc`` (B, enc_len, d) on its batch
+        axis, as the reference's ``_reset`` does."""
         for part in cache.values():
+            if isinstance(part, torch.Tensor):
+                part[slot] = 0
+                continue
             for layer in part:
                 for t in layer.values():
                     t[slot] = 0

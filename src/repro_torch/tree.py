@@ -1,9 +1,10 @@
 """Trees of tensors: the params, optimizer and train states (nested dicts
 and lists).
 
-The port keeps a layer stack (``blocks``, ``dense_blocks``) as a list of
-per-layer dicts, where the reference stacks each leaf on a leading layer
-axis.  :func:`stacked_leaves` and :func:`map_with_path` read a tree the
+The port keeps a layer stack (``blocks``, ``dense_blocks``, and the
+encoder's ``layers`` one level below the top) as a list of per-layer dicts,
+where the reference stacks each leaf on a leading layer axis.
+:func:`stacked_leaves` and :func:`map_with_path` read a tree the
 reference's way: leaves in its flattening order (dict keys sorted), each
 leaf of a layer stack one leaf over all its layers, named by the
 reference's key path.  What acts on a whole reference leaf (a checkpoint's
@@ -16,7 +17,9 @@ from typing import Callable
 
 import torch
 
-STACKED = ("blocks", "dense_blocks")
+# the keys whose value is a layer stack: a list of per-layer dicts here, one
+# array a leaf in the reference
+STACKED = ("blocks", "dense_blocks", "layers")
 
 
 def tree_map(fn, tree):

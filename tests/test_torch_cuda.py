@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCH_IDS
 from repro_torch.core import engine as TE
 from repro_torch.kernels import dppu_recompute as TDR
 from repro_torch.kernels import ft_matmul as TFM
@@ -356,7 +357,9 @@ def test_probe_check_pair_matches_plain_version_on_the_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,dispatch", [("qwen1.5-0.5b", "fused"), ("granite-moe-3b-a800m", "fused"),
-                                           ("qwen1.5-0.5b", "plain")])
+                                           ("qwen1.5-0.5b", "plain"), ("granite-8b", "fused"),
+                                           ("starcoder2-3b", "fused"), ("minicpm3-4b", "fused"),
+                                           ("llava-next-mistral-7b", "fused"), ("whisper-tiny", "fused")])
 def test_captured_step_equals_eager_across_a_swap_on_the_card(arch, dispatch):
     """The smoke config served with the step captured as a CUDA graph and
     with the eager step, in each mode, with a fault injected mid-run (a
@@ -518,49 +521,60 @@ def test_retrain_server_recaptures_once_and_its_sibling_serves_as_before_on_the_
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_fused_prefill_on_the_card(arch):
-    """``forward(last_only=True)`` on the smoke config under ``fused`` on the
-    card: one ``ft_matmul`` launch a protected matmul (the experts one
-    ``ft_matmul_batched`` an einsum), protected with faults the DPPU repairs
-    bitwise the fault-free array, unprotected different, and the card within
-    1e-4 of the same prefill on the CPU in f32."""
+    """``forward(last_only=True)`` on the smoke config in f32 under
+    ``fused`` on the card, with llava's patches and whisper's frames: one
+    ``ft_matmul`` launch a protected matmul and one ``ft_matmul_batched`` a
+    protected einsum, as ``chip_smoke.prefill_shapes`` records the prefill's
+    calls on ``meta``; protected with faults the DPPU repairs bitwise the
+    fault-free array, unprotected different, and the card within 1e-4 of
+    the same prefill on the CPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import dataclasses
+    import importlib.util
+    from pathlib import Path
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.ftcontext import build_ftcontext
     from repro_torch.models import lm as TL
 
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
     params = TL.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=gen)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((2, cfg.n_patches, cfg.d_vision), generator=gen) * 0.02
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, cfg.enc_len, cfg.d_model), generator=gen) * 0.02
     hyca = TE.HyCAConfig(4, 4, mode="protected")
+    two = [(0, 1, 22, 1), (2, 3, 21, 0)]  # mantissa bits: the unprotected values stay finite
 
-    def state(faults, dev):
+    def ctx(faults, mode, dev):
         fpt = torch.tensor([[r, c] for r, c, _, _ in faults] + [[-1, -1]], dtype=torch.int32)
         bits = torch.tensor([b for *_, b, _ in faults] + [0], dtype=torch.int32)
         vals = torch.tensor([v for *_, v in faults] + [0], dtype=torch.int32)
-        return TE.FaultState(fpt, bits, vals).to(dev)
+        return build_ftcontext(TE.FaultState(fpt, bits, vals).to(dev), dataclasses.replace(hyca, mode=mode),
+                               dispatch="fused")
 
     def prefill(faults, mode, dev):
-        ftc = build_ftcontext(state(faults, dev), dataclasses.replace(hyca, mode=mode), dispatch="fused")
         with torch.no_grad():
-            p = TL.tree_map(lambda a: a.to(dev), params)
-            return TL.forward(p, cfg, {"tokens": tokens.to(dev)}, ftc=ftc, last_only=True)[0]
+            return TL.forward(TL.tree_map(lambda a: a.to(dev), params), cfg,
+                              {k: v.to(dev) for k, v in batch.items()}, ftc=ctx(faults, mode, dev), last_only=True)[0]
 
-    two = [(0, 1, 22, 1), (2, 3, 21, 0)]  # mantissa bits: the unprotected values stay finite
+    shapes = cs.prefill_shapes(cfg, ctx([], "protected", "cpu"), params, batch)
     kernels = (TFM.ft_matmul, TFM.ft_matmul_batched)
     counts = [k.launches for k in kernels]
     off = prefill([], "protected", "cuda")
-    launched = [k.launches - c for k, c in zip(kernels, counts)]
-    per_layer = 7 if cfg.family == "dense" else 5
-    assert launched == [cfg.n_layers * per_layer + 1, 3 * cfg.n_layers if cfg.moe else 0]
-    prot = prefill(two, "protected", "cuda")
-    assert torch.equal(off.view(torch.int32), prot.view(torch.int32))
-    assert not torch.equal(off.view(torch.int32), prefill(two, "unprotected", "cuda").view(torch.int32))
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [
+        sum(n for key, n in shapes.items() if key[0] == k.__name__) for k in kernels]
+    assert torch.equal(off.view(torch.int32), prefill(two, "protected", "cuda").view(torch.int32))
+    bad = prefill(two, "unprotected", "cuda")
+    assert not torch.equal(off.view(torch.int32), bad.view(torch.int32))
     cpu = prefill(two, "unprotected", "cpu")
-    card = prefill(two, "unprotected", "cuda").cpu()
-    assert float((card - cpu).abs()[..., :cfg.vocab].max()) <= 1e-4
+    assert float((bad.cpu() - cpu).abs()[..., :cfg.vocab].max()) <= 1e-4

@@ -45,6 +45,32 @@ PLANS = [
     ("head_1536x49408", 1, 4, 1536, 49408, "k_fast", 1, 32),
     ("gate_up_48x1536x512", 48, 4, 1536, 512, "n_fast", 1, 64),
     ("down_48x512x1536", 48, 4, 512, 1536, "n_fast", 1, 64),
+    # the attention families: granite-8b and llava-next-mistral-7b share
+    # their layers' shapes; their untied heads at K = 4096 do not fit the
+    # K-fast kernel's x stage (KFAST_X_BYTES) and take the scalar one
+    ("q_out_4096x4096", 1, 4, 4096, 4096, "n_fast", 1, 64),
+    ("kv_4096x1024", 1, 4, 4096, 1024, "n_fast", 4, 64),
+    ("gate_up_4096x14336", 1, 4, 4096, 14336, "n_fast", 1, 64),
+    ("down_14336x4096", 1, 4, 14336, 4096, "n_fast", 1, 64),
+    ("head_4096x49152", 1, 4, 4096, 49152, "scalar", 1, 64),
+    ("head_4096x32000", 1, 4, 4096, 32000, "scalar", 1, 64),
+    ("q_out_3072x3072", 1, 4, 3072, 3072, "n_fast", 2, 64),
+    ("kv_3072x256", 1, 4, 3072, 256, "n_fast", 8, 64),
+    ("up_3072x12288", 1, 4, 3072, 12288, "n_fast", 1, 64),
+    ("down_12288x3072", 1, 4, 12288, 3072, "n_fast", 2, 64),
+    ("head_3072x49152", 1, 4, 3072, 49152, "k_fast", 1, 32),
+    ("wq_a_2560x768", 1, 4, 2560, 768, "n_fast", 8, 64),
+    ("wq_b_768x3840", 1, 4, 768, 3840, "n_fast", 2, 64),
+    ("wkv_a_2560x288", 1, 4, 2560, 288, "n_fast", 8, 64),
+    ("wo_2560x2560", 1, 4, 2560, 2560, "n_fast", 2, 64),
+    ("gate_up_2560x6400", 1, 4, 2560, 6400, "n_fast", 1, 64),
+    ("down_6400x2560", 1, 4, 6400, 2560, "n_fast", 2, 64),
+    ("head_2560x73472", 1, 4, 2560, 73472, "k_fast", 1, 32),
+    ("qkvo_384x384", 1, 4, 384, 384, "n_fast", 4, 64),
+    ("cross_kv_6000x384x384", 1, 6000, 384, 384, "n_fast", 1, 64),
+    ("up_384x1536", 1, 4, 384, 1536, "n_fast", 4, 64),
+    ("down_1536x384", 1, 4, 1536, 384, "n_fast", 8, 64),
+    ("head_384x51968", 1, 4, 384, 51968, "k_fast", 1, 32),
 ]
 
 
@@ -73,13 +99,49 @@ def test_plans_cover_every_main_path_shape():
     assert {p[:5] for p in PLANS} == want
 
 
+def _full_width(cs, arch: str):
+    """``arch``'s full-width config and its bf16 working params on ``meta``
+    (shapes only), and a protected fused context on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import cast_params, init_params
+
+    lm = get_config(arch)
+    params = cast_params(init_params(torch.Generator(), lm, device="meta"), lm.dtype)
+    return lm, params, cs._prefill_ctx("protected", [], "fused", "cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-3b-a800m", "granite-8b", "starcoder2-3b",
+                                  "minicpm3-4b", "llava-next-mistral-7b", "whisper-tiny"])
+def test_decode_shapes_are_the_decode_steps(arch):
+    """chip_smoke.py's DECODE_SHAPES and EXPERT_SHAPES, (M, K, N) and
+    launches, are the full-width decode step's protected calls as recorded
+    on ``meta``: the K that the kernel checks, the timings and PLANS read
+    is the path's own, not only the ledger's (M, N)."""
+    cs = _chip_smoke()
+    lm, params, ctx = _full_width(cs, arch)
+    assert cs.decode_shapes(lm, ctx, params) == cs.table_shapes(cs.DECODE_SHAPES[arch], cs.EXPERT_SHAPES[arch])
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-3b-a800m", "minicpm3-4b",
+                                  "llava-next-mistral-7b", "whisper-tiny"])
+def test_prefill_shapes_are_the_prefills(arch):
+    """chip_smoke.py's PREFILL_SHAPES and PREFILL_EXPERT_SHAPES are the
+    full-width fused prefill's protected calls at PREFILL's (B, S), with
+    llava's patches and whisper's frames, as recorded on ``meta``."""
+    cs = _chip_smoke()
+    lm, params, ctx = _full_width(cs, arch)
+    batch = cs.prefill_batch(lm, "meta")
+    assert cs.prefill_shapes(lm, ctx, params, batch) == cs.table_shapes(
+        cs.PREFILL_SHAPES[arch], cs.PREFILL_EXPERT_SHAPES[arch])
+
+
 @pytest.mark.parametrize("name,e,m,k,n,layout,split,bn", PLANS, ids=[p[0] for p in PLANS])
 def test_plan_of_each_decode_shape(name, e, m, k, n, layout, split, bn):
     """Instantiation, cluster split and strip width at each main-path shape:
-    the dense projections split K two to eight ways (8-44 strips alone
-    would leave most of the card idle), the expert stacks fill the card
-    without a split, and the heads' transposed tables take the K-fast
-    kernel."""
+    the dense projections split K up to eight ways while a call has fewer
+    than 64 blocks (8-44 strips alone would leave most of the card idle),
+    the expert stacks fill the card without a split, and the heads'
+    transposed tables take the K-fast kernel up to K = 3072."""
     w = _weight(name, e, k, n)
     x = torch.empty((e, m, k) if e > 1 else (m, k), dtype=torch.bfloat16)
     assert TFM.w_layout(w) == layout

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get_smoke_config as j_smoke
 from repro.core import engine as JE
@@ -266,23 +267,60 @@ def test_protected_within_capacity_trains_as_off(jparams):
     assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
 
 
+class _CountMatmuls(TorchDispatchMode):
+    """Counts the 2-D matmuls (aten.mm, aten.addmm) dispatched inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_remat_on_equals_off(jparams, family):
     """Per-layer ``torch.utils.checkpoint`` recomputes exactly what it
-    dropped: loss and gradients bitwise equal with remat on and off."""
+    dropped: loss and gradients bitwise equal with remat off, on with
+    ``remat_policy="full"`` and on with ``"dots"`` (the matmul outputs kept,
+    the rest recomputed).  The backward of ``"full"`` recomputes the
+    forward's 2-D matmuls, that of ``"dots"`` none of them."""
     _, tc = _cfgs(family)
     _, tb = _batch(tc.vocab, seed=3)
     _, tf = _ctxs("twopass_unprotected")
-    out = []
-    for remat in (False, True):
+    out, backward_mms = [], []
+    for remat, policy in ((False, "full"), (True, "full"), (True, "dots")):
         leaves = tree_map(lambda a: a.requires_grad_(), _port(jparams[family]))
-        loss, _ = TL.loss_fn(leaves, dataclasses.replace(tc, remat=remat), tb, ftc=tf)
-        loss.backward()
+        loss, _ = TL.loss_fn(leaves, dataclasses.replace(tc, remat=remat, remat_policy=policy), tb, ftc=tf)
+        with _CountMatmuls() as count:
+            loss.backward()
+        backward_mms.append(count.n)
         out.append((loss.detach(), [a.grad for a in TO.tree_leaves(leaves)]))
-    assert torch.equal(out[0][0], out[1][0])
-    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
-    with pytest.raises(NotImplementedError, match="A6"):
-        TL.forward(_port(jparams[family]), dataclasses.replace(tc, remat=True, remat_policy="dots"), tb)
+    for loss, grads in out[1:]:
+        assert torch.equal(out[0][0], loss)
+        assert all(torch.equal(a, b) for a, b in zip(out[0][1], grads))
+    plain, full, dots = backward_mms
+    assert full > plain and dots == plain, backward_mms
+    with pytest.raises(ValueError, match="remat_policy"):
+        TL.loss_fn(_port(jparams[family]), dataclasses.replace(tc, remat=True, remat_policy="none"), tb)
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_remat_dots_matches_jax(jparams, family):
+    """``remat_policy="dots"`` (``jax.checkpoint_dots_with_no_batch_dims`` in
+    the reference): loss and gradients against ``jax.value_and_grad`` of the
+    reference under the same policy, within the f32 tolerances."""
+    jc, tc = _cfgs(family, remat=True, remat_policy="dots")
+    jb, tb = _batch(jc.vocab, seed=5)
+    jf, tf = _ctxs("twopass_protected")
+    (jloss, _), jg = jax.value_and_grad(lambda p: JL.loss_fn(p, jc, jb, ftc=jf), has_aux=True)(jparams[family])
+    leaves = tree_map(lambda a: a.requires_grad_(), _port(jparams[family]))
+    tloss, _ = TL.loss_fn(leaves, tc, tb, ftc=tf)
+    tloss.backward()
+    assert abs(float(jloss) - float(tloss.detach())) <= LOSS_TOL["f32"] * max(1.0, abs(float(jloss)))
+    assert _leafwise_max_err(jg, TL.params_to_numpy(tree_map(lambda a: a.grad, leaves))) <= GRAD_TOL["f32"]
 
 
 def test_streamed_loss_fn_matches_jax(jparams):
