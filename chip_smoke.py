@@ -19,7 +19,9 @@ Phases, each printed on its own line; any failure exits non-zero:
      version and of an f64 product on random operands; the same call twice
      gives the same bits, and the kernel's bf16 store is bitwise its f32
      output cast to bf16; each shape's plan (instantiation, cluster split,
-     strip width) is printed;
+     strip width) is printed; then an f32 x against a bf16 w, RWKV6's decay
+     LoRA call (w_b), at 4 x 64 -> 4096 and 2048 x 64 -> 4096, the same way
+     (bitwise on an f32 x that bf16 cannot hold);
   4. ft_matmul_batched against ft_matmul_batched_ref in the same way, at the
      granite expert shapes (48 experts x 4 rows, 1536->512 and 512->1536)
      and ragged ones (5x3x1000->1000, M = 37, a 66-byte row pitch), with x
@@ -157,6 +159,17 @@ Phases, each printed on its own line; any failure exits non-zero:
      ft_matmul to its plain version at each of these models' decode shapes
      (N = 288, K = 384, the 73472- and 51968-wide heads, whisper's M = 6000
      call).
+  12. the recurrent families, after the attention families and in the same
+     way (family_server_phase, timing_phase, prefill_phase, one bundle at a
+     time): rwkv6-7b (32 RWKV6 layers, d 4096, untied 65536-wide head; the
+     WKV recurrence stays off the array, its state S, x_tm, x_cm written in
+     place by the captured step; ft_matmul 321 a step, w_b with an f32 x)
+     and zamba2-1.2b (38 Mamba2 layers, the shared attention + FFN block
+     after each of 7 groups, all protected whatever the layer fraction; the
+     SSD state written in place; ft_matmul 126 a step), each at full width:
+     the three modes captured and eager (captured equal to eager and
+     protected to off bit for bit, unprotected different), the kernel times
+     a decode step, and the fused prefill of 4 x 512 tokens.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -186,7 +199,9 @@ QWEN, GRANITE = "qwen1.5-0.5b", "granite-moe-3b-a800m"
 # the attention families, served after the two models above
 GRANITE8B, STARCODER2, MINICPM3 = "granite-8b", "starcoder2-3b", "minicpm3-4b"
 LLAVA, WHISPER = "llava-next-mistral-7b", "whisper-tiny"
-FAMILIES = (GRANITE8B, STARCODER2, MINICPM3, LLAVA, WHISPER)
+# the recurrent families, served after the attention families
+RWKV6, ZAMBA2 = "rwkv6-7b", "zamba2-1.2b"
+FAMILIES = (GRANITE8B, STARCODER2, MINICPM3, LLAVA, WHISPER, RWKV6, ZAMBA2)
 # (name, M, K, N, launches per decode step) of each model's ft_matmul calls
 DECODE_SHAPES = {
     QWEN: (
@@ -239,7 +254,26 @@ DECODE_SHAPES = {
         ("down_1536x384", 4, 1536, 384, 4),
         ("head_384x51968", 4, 384, 51968, 1),
     ),
+    RWKV6: (  # r/k/v/g/o and ffr; the decay LoRA pair, w_b with f32 x; ffk/ffv; untied head
+        ("rkvgo_ffr_4096x4096", 4, 4096, 4096, 32 * 6),
+        ("w_a_4096x64", 4, 4096, 64, 32),
+        ("w_b_64x4096", 4, 64, 4096, 32),
+        ("ffk_4096x14336", 4, 4096, 14336, 32),
+        ("ffv_14336x4096", 4, 14336, 4096, 32),
+        ("head_4096x65536", 4, 4096, 65536, 1),
+    ),
+    ZAMBA2: (  # 38 mamba layers; the shared attention + FFN block after each of 7 groups; tied head
+        ("in_proj_2048x8384", 4, 2048, 8384, 38),
+        ("out_proj_4096x2048", 4, 4096, 2048, 38),
+        ("qkvo_2048x2048", 4, 2048, 2048, 7 * 4),
+        ("gate_up_2048x8192", 4, 2048, 8192, 7 * 2),
+        ("down_8192x2048", 4, 8192, 2048, 7),
+        ("head_2048x32000", 4, 2048, 32000, 1),
+    ),
 }
+# the shapes whose x is float32 against a bf16 w: RWKV6's decay LoRA feeds
+# its f32 tanh to w_b; the call runs the CUDA-core instantiation and stores f32
+F32_X_SHAPES = ("w_b_64x4096", "w_b_2048x64x4096")
 # (name, E, M, K, N, launches per decode step) of ft_matmul_batched
 EXPERT_SHAPES = {
     **{arch: () for arch in FAMILIES},
@@ -348,7 +382,7 @@ def fault_grids(dev):
     return fault_mask_grids(meta)
 
 
-def _kernel_checks(name: str, kernel, plain, operands, and_g, or_g, dtype) -> tuple[float, float]:
+def _kernel_checks(name: str, kernel, plain, operands, and_g, or_g, dtype, kinds=None) -> tuple[float, float]:
     """One kernel against its plain version on one shape and dtype.
     ``operands(kind)`` draws (x, w).  Integer-valued operands, and in f32 one
     operand of ±(1 + 2^-8) entries: every partial sum is a multiple of 2^-8
@@ -357,12 +391,14 @@ def _kernel_checks(name: str, kernel, plain, operands, and_g, or_g, dtype) -> tu
     2^-8 and shows here).  Random operands: the clean accumulate within
     RAND_TOL of the plain version and of an f64 product, and the faulted
     output exactly the epilogue of the kernel's own clean accumulate.
+    ``kinds``: the exact operand kinds to draw (default: by ``dtype``).
     Returns (max |Δ| against the plain version, max |Δ| / scale)."""
     from repro_torch.core.engine import apply_mask_grids
 
     keep = torch.full_like(and_g, -1)
     zero = torch.zeros_like(or_g)
-    kinds = ("integer",) + (("frac_x", "frac_w") if dtype == torch.float32 else ())
+    if kinds is None:
+        kinds = ("integer",) + (("frac_x", "frac_w") if dtype == torch.float32 else ())
     for kind in kinds:
         x, w = operands(kind)
         if kind != "integer":
@@ -447,6 +483,36 @@ def ft_matmul_phase(dev) -> float:
     phase("ft_matmul", shapes=[s[0] for s in shapes], dtypes=["bf16", "f32"],
           bitwise=["integer", "f32 frac_x", "f32 frac_w", "bf16 store = f32 cast", "repeat call"],
           random_tol=f"{RAND_TOL}*(|x|@|w|)", max_abs_err=max_err, max_err_over_scale=max_rel, plans=plans)
+    return max_err
+
+
+def mixed_dtype_checks(dev) -> float:
+    """``ft_matmul`` with float32 x against a bfloat16 w, the pair RWKV6's
+    decay LoRA hands it (its f32 ``tanh`` against ``w_b``), at that call's
+    decode and prefill shapes (``F32_X_SHAPES``): integer-valued operands and
+    an f32 x of ±(1 + 2^-8) entries bitwise (a kernel that rounded x to bf16
+    would drop the 2^-8), random operands within RAND_TOL of
+    ``ft_matmul_ref`` and of the f64 product, the bf16 store bitwise the f32
+    output cast, as :func:`_kernel_checks` holds every shape.  Returns the
+    max |kernel - plain| on random operands."""
+    from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_ref, plan_of
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    and_g, or_g = fault_grids(dev)
+    max_err, rel, plans = 0.0, {}, {}
+    shapes = [s[:4] for table in (DECODE_SHAPES, PREFILL_SHAPES) for s in table[RWKV6] if s[0] in F32_X_SHAPES]
+    for name, m, k, n in shapes:
+        def operands(kind: str):
+            return (_draw(g, dev, torch.float32, kind, (m, k), 1.0, kind == "frac_x"),
+                    _draw(g, dev, torch.bfloat16, kind, (k, n), 0.02, False))
+
+        err, rel[name] = _kernel_checks(f"ft_matmul {name} f32 x bf16 w", ft_matmul, ft_matmul_ref, operands,
+                                        and_g, or_g, torch.float32, kinds=("integer", "frac_x"))
+        max_err = max(max_err, err)
+        plans[name] = _plan_str(plan_of(*operands("integer")))
+    phase("ft_matmul_mixed", shapes=[s[0] for s in shapes], x_dtype="f32", w_dtype="bf16", plans=plans,
+          bitwise=["integer", "f32 frac_x", "bf16 store = f32 cast", "repeat call"],
+          random_tol=f"{RAND_TOL}*(|x|@|w|)", max_abs_err=max_err, max_err_over_scale=rel)
     return max_err
 
 
@@ -1115,12 +1181,12 @@ def measure(fn, args_list, iters: int) -> tuple[float, float | None]:
     return time_cuda(fn, args_list, iters), device_ms(fn, args_list, iters)
 
 
-def _time_shape(kernel, plain, library, x, ws, and_g, or_g):
+def _time_shape(kernel, plain, library, x, ws, and_g, or_g, lib_ws=None):
     copies = len(ws)
     iters = max(20, 4 * copies)
     c_k, d_k = measure(kernel, [(x, w, and_g, or_g) for w in ws], iters)
     c_p, d_p = measure(plain, [(x, w, and_g, or_g) for w in ws], max(10, copies))
-    c_l, d_l = measure(library, [(x, w) for w in ws], iters)
+    c_l, d_l = measure(library, [(x, w) for w in (lib_ws or ws)], iters)
     use_dev = None not in (d_k, d_p, d_l)
     t = (d_k, d_p, d_l) if use_dev else (c_k, c_p, c_l)
     return t, (c_k, c_p, c_l), "profiler" if use_dev else "events"
@@ -1134,7 +1200,10 @@ def time_kernel_shapes(dev, smi: str, arch: str, mm_shapes, expert_shapes, where
     per call as a Python loop sees it.  Returns {kernel: totals}."""
     from repro_torch.kernels import ft_matmul as FM
 
-    # the call the serving path makes: bf16 operands, the kernel's bf16 store
+    # the call the serving path makes: bf16 operands, the kernel's bf16 store;
+    # for F32_X_SHAPES an f32 x and the f32 store (FTContext stores x's dtype),
+    # the library call on the same x and an f32 copy of w (no one call takes
+    # the mixed pair)
     def bf16_store(fn):
         return lambda x, w, a, o: fn(x, w, a, o, out_dtype=torch.bfloat16)
 
@@ -1149,17 +1218,20 @@ def time_kernel_shapes(dev, smi: str, arch: str, mm_shapes, expert_shapes, where
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, call_ms=0.0)
         for shape in shapes:
             name, per = shape[0], shape[-1]
+            mixed = name in F32_X_SHAPES
             if kname == "ft_matmul":
                 _, m, k, n, _ = shape
                 e = 1
                 head = name.startswith("head")
-                x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+                x = torch.randn((m, k), generator=g, device=dev).to(torch.float32 if mixed else torch.bfloat16)
 
                 def weight():
                     if head:
                         return (torch.randn((n, k), generator=g, device=dev) * 0.02).to(torch.bfloat16).T
                     return (torch.randn((k, n), generator=g, device=dev) * 0.02).to(torch.bfloat16)
                 kernel, plain, library = bf16_store(FM.ft_matmul), bf16_store(FM.ft_matmul_ref), torch.matmul
+                if mixed:
+                    kernel, plain = FM.ft_matmul, FM.ft_matmul_ref
             else:
                 _, e, m, k, n, _ = shape
                 x = dispatch_view(torch.randn((m, e, 1, k), generator=g, device=dev).to(torch.bfloat16))
@@ -1170,18 +1242,21 @@ def time_kernel_shapes(dev, smi: str, arch: str, mm_shapes, expert_shapes, where
                                           torch.bmm)
             w_bytes = 2 * e * k * n
             ws = [weight() for _ in range(max(1, min(64, -(-2 * L2_BYTES // w_bytes))))]
-            (t_k, t_p, t_l), (c_k, c_p, c_l), src = _time_shape(kernel, plain, library, x, ws, and_g, or_g)
-            # bf16 x and w read once, the bf16 output written once, the mask pair
-            nbytes = 2 * e * m * k + w_bytes + 2 * e * m * n + 2 * 4 * ROWS * COLS
-            b, by = bound_ms(nbytes, 2 * e * m * n * k, torch.bfloat16)
+            lib_ws = [w.float() for w in ws] if mixed else None
+            (t_k, t_p, t_l), (c_k, c_p, c_l), src = _time_shape(kernel, plain, library, x, ws, and_g, or_g, lib_ws)
+            # x and w read once, the output (bf16, or f32 for an f32 x) written
+            # once, the mask pair; a mixed pair runs on the CUDA cores
+            out_b = 4 if mixed else 2
+            nbytes = x.element_size() * e * m * k + w_bytes + out_b * e * m * n + 2 * 4 * ROWS * COLS
+            b, by = bound_ms(nbytes, 2 * e * m * n * k, torch.float32 if mixed else torch.bfloat16)
             phase(f"time_{kname}{suffix}", arch=arch, shape=name, E=e, M=m, K=k, N=n, **{f"launches_per_{where}": per},
-                  plan=_plan_str(FM.plan_of(x, ws[0])), out_dtype="bf16",
+                  plan=_plan_str(FM.plan_of(x, ws[0])), x_dtype=str(x.dtype)[6:], out_dtype="f32" if mixed else "bf16",
                   ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b, bound_by=by,
                   bound_share=b / t_k, tflops=tflops(2 * e * m * n * k, t_k), call_ms=c_k, plain_call_ms=c_p,
                   library_call_ms=c_l, ms_source=src, card=smi)
             for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b), ("call_ms", c_k)):
                 tot[key] += per * v
-            del ws
+            del ws, lib_ws
         totals[kname] = dict(tot, **{f"launches_per_{where}": sum(s[-1] for s in shapes)})
         phase(f"time_{kname}_per_{where}", arch=arch, **totals[kname], card=smi)
     # timing launches are not main-path launches
@@ -2011,7 +2086,8 @@ def transients_phase(dev, smi, bundle) -> None:
 # (B, S) of each model's fused prefill: 4 sequences of 512 tokens; llava one
 # of 3072, a multiple of the query block that holds its 2880 patches; whisper
 # 4 of 448 tokens through the decoder over 4 x 1500 frames through the encoder
-PREFILL = {QWEN: (4, 512), GRANITE: (4, 512), MINICPM3: (4, 512), LLAVA: (1, 3072), WHISPER: (4, 448)}
+PREFILL = {QWEN: (4, 512), GRANITE: (4, 512), MINICPM3: (4, 512), LLAVA: (1, 3072), WHISPER: (4, 448),
+           RWKV6: (4, 512), ZAMBA2: (4, 512)}
 # (name, M, K, N, launches per prefill) of each model's ft_matmul calls in the
 # fused prefill: M = B·S, the head at M = B (last_only)
 PREFILL_SHAPES = {
@@ -2055,6 +2131,22 @@ PREFILL_SHAPES = {
         ("dec_up_1792x384x1536", 1792, 384, 1536, 4),
         ("dec_down_1792x1536x384", 1792, 1536, 384, 4),
         ("head_4x384x51968", 4, 384, 51968, 1),
+    ),
+    RWKV6: (
+        ("rkvgo_ffr_2048x4096x4096", 2048, 4096, 4096, 32 * 6),
+        ("w_a_2048x4096x64", 2048, 4096, 64, 32),
+        ("w_b_2048x64x4096", 2048, 64, 4096, 32),
+        ("ffk_2048x4096x14336", 2048, 4096, 14336, 32),
+        ("ffv_2048x14336x4096", 2048, 14336, 4096, 32),
+        ("head_4x4096x65536", 4, 4096, 65536, 1),
+    ),
+    ZAMBA2: (
+        ("in_proj_2048x2048x8384", 2048, 2048, 8384, 38),
+        ("out_proj_2048x4096x2048", 2048, 4096, 2048, 38),
+        ("qkvo_2048x2048x2048", 2048, 2048, 2048, 7 * 4),
+        ("gate_up_2048x2048x8192", 2048, 2048, 8192, 7 * 2),
+        ("down_2048x8192x2048", 2048, 8192, 2048, 7),
+        ("head_4x2048x32000", 4, 2048, 32000, 1),
     ),
 }
 # (name, E, M, K, N, launches per prefill) of ft_matmul_batched: M = B x the
@@ -2494,7 +2586,8 @@ def main() -> None:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     dev = torch.device("cuda")
     build_phase()
-    err = {"ft_matmul": ft_matmul_phase(dev), "ft_matmul_batched": ft_matmul_batched_phase(dev)}
+    err = {"ft_matmul": max(ft_matmul_phase(dev), mixed_dtype_checks(dev)),
+           "ft_matmul_batched": ft_matmul_batched_phase(dev)}
     for name, e in prefill_kernel_checks(dev).items():
         err[name] = max(err[name], e)
     probe_check_phase(dev)

@@ -18,7 +18,8 @@ One object carries the fault-tolerance story of a model call:
 
 Models route every weight matmul through ``ftc.matmul(x, w, site=...)``, and
 the batched expert matmuls through ``ftc.einsum(spec, x, w, site=...)``;
-``ftc=None`` is plain ``torch.matmul`` / ``torch.einsum``.
+``ftc=None`` is :func:`plain_matmul` (``torch.matmul`` with ``jnp.matmul``'s
+promotion of mixed float operands) / ``torch.einsum``.
 
 Invariant: with ``mode="protected"`` and #faults <= DPPU capacity, every
 dispatch is bit-exact with ``mode="off"``.
@@ -238,12 +239,13 @@ class FTContext:
     def matmul(self, x: torch.Tensor, w: torch.Tensor, *, site: str) -> torch.Tensor:
         """``x @ w`` with ``x: (..., K)`` and ``w: (K, N)``, routed through the
         protected virtual array when the policy covers ``site``.  The result
-        has ``x``'s dtype."""
+        has ``x``'s dtype; an unprotected site's has the operands' promoted
+        dtype, as ``jnp.matmul``'s."""
         if not self.protects(site):
-            return torch.matmul(x, w)
+            return plain_matmul(x, w)
         plan = self._plan_for(site)
         if self.dispatch == "plain":
-            out = torch.matmul(x, w)
+            out = plain_matmul(x, w)
         elif self.dispatch == "twopass":
             out = hyca_matmul(x, w, self.state, cfg=self.hyca, plan=plan)
         elif self.dispatch == "fused":
@@ -376,9 +378,20 @@ def build_ftcontext(
     return FTContext(state=state, hyca=hyca, policy=policy, dispatch=dispatch, plan=plan)
 
 
+def plain_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with ``jnp.matmul``'s promotion: float operands of two
+    dtypes are both cast to the promoted one first (f32 x bf16 -> f32),
+    where ``torch.matmul`` raises.  Operands of one dtype go straight to
+    ``torch.matmul``."""
+    if x.dtype != w.dtype and x.dtype.is_floating_point and w.dtype.is_floating_point:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return torch.matmul(x.to(dt), w.to(dt))
+    return torch.matmul(x, w)
+
+
 def site_matmul(ftc: FTContext | None, site: str) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-    """A plain ``torch.matmul`` when no context is threaded, else the
+    """:func:`plain_matmul` when no context is threaded, else the
     context's dispatcher bound to one call site."""
     if ftc is None:
-        return torch.matmul
+        return plain_matmul
     return lambda x, w: ftc.matmul(x, w, site=site)

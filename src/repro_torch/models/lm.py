@@ -1,14 +1,14 @@
 """LM composer: config schema, init, the sequence forward and its loss
 (prefill and training), the decode cache and one-token decode.
 
-Ported families: dense (qwen1.5-0.5b, granite-8b, starcoder2-3b,
-minicpm3-4b), moe (granite-moe-3b-a800m, deepseek-moe-16b), vlm
-(llava-next-mistral-7b: the projected patches spliced over the prompt's
-prefix, decoded as dense) and encdec (whisper-tiny: an encoder over
-precomputed frames, decoder layers with cross-attention), with GQA or MLA
-attention, RMSNorm or LayerNorm, gated or plain FFNs.  The recurrent
-families (ssm, hybrid) raise ``NotImplementedError`` until their slice
-lands.
+All six families of the JAX package: dense (qwen1.5-0.5b, granite-8b,
+starcoder2-3b, minicpm3-4b), moe (granite-moe-3b-a800m, deepseek-moe-16b),
+vlm (llava-next-mistral-7b: the projected patches spliced over the prompt's
+prefix, decoded as dense), encdec (whisper-tiny: an encoder over
+precomputed frames, decoder layers with cross-attention), ssm (rwkv6-7b:
+RWKV6 blocks) and hybrid (zamba2-1.2b: Mamba2 layers in groups, one shared
+attention + FFN block after each group), with GQA or MLA attention,
+RMSNorm or LayerNorm, gated or plain FFNs.
 
 Params are nested dicts of tensors in the JAX package's layout (``w`` is
 ``(d_in, d_out)``, ``x @ w``), except that a layer stack (``blocks``,
@@ -43,7 +43,9 @@ from repro_torch.models.layers import (
     Params, cross_entropy, embed_init, ffn, ffn_init, gelu, layernorm, layernorm_init, rmsnorm, rmsnorm_init,
     streamed_cross_entropy,
 )
+from repro_torch.models.mamba2 import mamba2_cache_init, mamba2_decode, mamba2_forward, mamba2_init
 from repro_torch.models.moe import moe_forward, moe_init
+from repro_torch.models.rwkv6 import rwkv6_cache_init, rwkv6_decode, rwkv6_forward, rwkv6_init
 from repro_torch.tree import STACKED, tree_leaves, tree_map
 
 _ACTS = {"silu": F.silu, "gelu": gelu, "relu": F.relu}
@@ -104,15 +106,12 @@ class LMConfig:
         )
 
 
-PORTED_FAMILIES = ("dense", "moe", "vlm", "encdec")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
 
 
 def _require_ported(cfg: LMConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family={cfg.family!r} comes with the recurrent slice (Mamba2, RWKV6); "
-            f"the port has the families {PORTED_FAMILIES}"
-        )
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; known: {PORTED_FAMILIES}")
 
 
 # --------------------------------------------------------------------------- #
@@ -159,7 +158,8 @@ def init_params(gen: torch.Generator, cfg: LMConfig, *, device=None) -> Params:
     has ``blocks`` of MoE blocks and, when ``first_k_dense > 0``, the dense
     ``dense_blocks`` that sit below them; vlm adds the projector
     ``mm_proj``; encdec has the ``encoder`` and decoder layers as
-    ``blocks``."""
+    ``blocks``; ssm has RWKV6 ``blocks``; hybrid has ``blocks`` of ``{ln,
+    mamba}`` and one ``shared`` dense block, which is no layer stack."""
     _require_ported(cfg)
     device = gen.device if device is None else torch.device(device)
     p: Params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, device=device)}
@@ -170,6 +170,12 @@ def init_params(gen: torch.Generator, cfg: LMConfig, *, device=None) -> Params:
         p["blocks"] = [_dense_block_init(gen, cfg, cfg.d_ff, device) for _ in range(cfg.n_layers)]
         if cfg.family == "vlm":
             p["mm_proj"] = mm_projector_init(gen, cfg.d_vision, cfg.d_model, device=device)
+    elif cfg.family == "ssm":
+        p["blocks"] = [rwkv6_init(gen, cfg.rwkv, device=device) for _ in range(cfg.n_layers)]
+    elif cfg.family == "hybrid":
+        p["blocks"] = [{"ln": _norm_init(cfg, cfg.d_model, device), "mamba": mamba2_init(gen, cfg.ssm, device=device)}
+                       for _ in range(cfg.n_layers)]
+        p["shared"] = _dense_block_init(gen, cfg, cfg.d_ff, device)
     elif cfg.family == "encdec":
         p["encoder"] = ed.encoder_init(gen, cfg.n_enc_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, device=device)
         p["blocks"] = [ed.decoder_layer_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_ff, device=device)
@@ -246,7 +252,10 @@ def forward(
     differentiated, as the reference's ``_cast`` does.  Every weight matmul
     of the protected layer prefix and the LM head routes through ``ftc``;
     the moe family's first-k dense blocks, the multimodal projector and the
-    encoder run with the whole ``ftc``.  ``last_only``: production prefill,
+    encoder run with the whole ``ftc``, and so does every layer of the
+    hybrid family and every application of its shared block (no layer
+    split, as in the reference: the shared block runs after every group).
+    ``last_only``: production prefill,
     the logits of the last position only (the (B, S, V) tensor is never
     built).  ``return_hidden``: the final normed hidden state instead of
     the logits."""
@@ -281,7 +290,14 @@ def forward(
         x = x + ed.cross_attn(layernorm(x, lp["ln_x"]), enc, lp["xattn"], xcfg, fc)
         return x + ffn(layernorm(x, lp["ln2"]), lp["ffn"], act=_ACTS["gelu"], ftc=fc)
 
+    def rwkv_block(x, lp, fc):
+        return rwkv6_forward(x, lp, cfg.rwkv, ftc=fc)
+
+    def mamba_block(x, lp, fc):
+        return x + mamba2_forward(_norm(x, lp["ln"], cfg), lp["mamba"], cfg.ssm, ftc=fc)
+
     dense, moe, decoder = _remat(dense_block, cfg), _remat(moe_block, cfg), _remat(decoder_block, cfg)
+    rwkv, mamba = _remat(rwkv_block, cfg), _remat(mamba_block, cfg)
     if cfg.family == "encdec":
         enc = ed.encoder_forward(audio_frontend(batch["frames"].to(cfg.dtype)), p["encoder"], cfg.d_model,
                                  cfg.n_heads, ftc=ftc)
@@ -289,14 +305,22 @@ def forward(
         for lp in p["dense_blocks"]:
             x = dense(x, lp, ftc)
     n_main = cfg.n_layers - cfg.first_k_dense
-    for lo, hi, fc in _layer_splits(n_main, ftc):
-        for i in range(lo, hi):
-            if cfg.family == "moe":
-                x, aux = moe(x, aux, p["blocks"][i], fc)
-            elif cfg.family == "encdec":
-                x = decoder(x, enc, p["blocks"][i], fc)
-            else:
-                x = dense(x, p["blocks"][i], fc)
+    if cfg.family == "hybrid":  # all-or-nothing: the shared block runs after every group
+        for start, length in _hybrid_groups(cfg):
+            for i in range(start, start + length):
+                x = mamba(x, p["blocks"][i], ftc)
+            x = dense_block(x, p["shared"], ftc)
+    else:
+        for lo, hi, fc in _layer_splits(n_main, ftc):
+            for i in range(lo, hi):
+                if cfg.family == "moe":
+                    x, aux = moe(x, aux, p["blocks"][i], fc)
+                elif cfg.family == "encdec":
+                    x = decoder(x, enc, p["blocks"][i], fc)
+                elif cfg.family == "ssm":
+                    x = rwkv(x, p["blocks"][i], fc)
+                else:
+                    x = dense(x, p["blocks"][i], fc)
     if cfg.family == "moe":
         aux = aux / max(n_main, 1)
     if last_only:
@@ -331,8 +355,17 @@ def init_cache(cfg: LMConfig, batch: int, smax: int, dtype=torch.bfloat16, *, de
     (B,Smax,d_rope), idx: (B,)}; plus "attn_dense" for the first
     ``first_k_dense`` layers, and for encdec "enc", the encoder output
     (B, enc_len, d) that cross-attention reads (zeros until a caller fills
-    it)."""
+    it).  ssm: {"rwkv": [per-layer {S: (B,H,dk,dk), x_tm, x_cm: (B,d)}]};
+    hybrid: {"mamba": [per-layer {ssm: (B,H,N,P)}], "shared_attn":
+    [per-group GQA cache]}.  The recurrent states are float32 whatever
+    ``dtype``, as in the reference."""
     _require_ported(cfg)
+    if cfg.family == "ssm":
+        return {"rwkv": [rwkv6_cache_init(cfg.rwkv, batch, device=device) for _ in range(cfg.n_layers)]}
+    if cfg.family == "hybrid":
+        return {"mamba": [mamba2_cache_init(cfg.ssm, batch, device=device) for _ in range(cfg.n_layers)],
+                "shared_attn": [gqa_cache_init(cfg.attn_cfg, batch, smax, dtype, device=device)
+                                for _ in _hybrid_groups(cfg)]}
 
     def layers(n):
         if cfg.attn_kind == "mla":
@@ -347,6 +380,13 @@ def init_cache(cfg: LMConfig, batch: int, smax: int, dtype=torch.bfloat16, *, de
     if cfg.first_k_dense:
         cache["attn_dense"] = layers(cfg.first_k_dense)
     return cache
+
+
+def _hybrid_groups(cfg: LMConfig) -> list[tuple[int, int]]:
+    """[(start, length)] of the hybrid family's mamba-layer groups; the
+    shared attention block runs after each."""
+    ae = cfg.attn_every or cfg.n_layers
+    return [(i, min(ae, cfg.n_layers - i)) for i in range(0, cfg.n_layers, ae)]
 
 
 def _layer_splits(n: int, ftc: FTContext | None) -> list[tuple[int, int, FTContext | None]]:
@@ -428,8 +468,10 @@ def decode_step(
     moe family's first-k dense blocks run with the whole ``ftc``, below the
     split main stack, as in the JAX package.  The encdec family's
     cross-attention projects K and V from ``cache["enc"]`` on every step,
-    on the array.  The KV cache is updated in place, lengths included, and
-    the same dict is returned (see
+    on the array.  The ssm family splits its RWKV6 stack as the dense one;
+    the hybrid family runs every mamba layer and the shared block with the
+    whole ``ftc``.  The cache is updated in place, lengths and recurrent
+    states included, and the same dict is returned (see
     :func:`~repro_torch.models.attention.gqa_decode`): the port's
     counterpart of the reference step's donated cache.
     """
@@ -457,11 +499,22 @@ def decode_step(
         x = x + ed.cross_attn(layernorm(x, lp["ln_x"]), cache["enc"], lp["xattn"], xcfg, fc)
         return x + ffn(layernorm(x, lp["ln2"]), lp["ffn"], act=_ACTS["gelu"], ftc=fc)
 
+    def rwkv_block(x, lp, c, fc):
+        return rwkv6_decode(x, lp, cfg.rwkv, c, fc)[0]
+
+    if cfg.family == "hybrid":
+        for gi, (start, length) in enumerate(_hybrid_groups(cfg)):
+            for i in range(start, start + length):
+                lp = params["blocks"][i]
+                x = x + mamba2_decode(_norm(x, lp["ln"], cfg), lp["mamba"], cfg.ssm, cache["mamba"][i], ftc)[0]
+            x = dense_block(x, params["shared"], cache["shared_attn"][gi], ftc)
+        return _logits(x, params, cfg, ftc), cache
     if cfg.first_k_dense:
         for lp, c in zip(params["dense_blocks"], cache["attn_dense"]):
             x = dense_block(x, lp, c, ftc)
-    block = {"moe": moe_block, "encdec": decoder_block}.get(cfg.family, dense_block)
+    block = {"moe": moe_block, "encdec": decoder_block, "ssm": rwkv_block}.get(cfg.family, dense_block)
+    layer_caches = cache["rwkv" if cfg.family == "ssm" else "attn"]
     for lo, hi, fc in _layer_splits(cfg.n_layers - cfg.first_k_dense, ftc):
         for i in range(lo, hi):
-            x = block(x, params["blocks"][i], cache["attn"][i], fc)
+            x = block(x, params["blocks"][i], layer_caches[i], fc)
     return _logits(x, params, cfg, ftc), cache

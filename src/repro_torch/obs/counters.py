@@ -131,8 +131,10 @@ class _LedgerRecorder:
                                   self.ftc.dispatch if protected else "plain", protected))
 
     def matmul(self, x: torch.Tensor, w: torch.Tensor, *, site: str) -> torch.Tensor:
+        from repro_torch.core.ftcontext import plain_matmul
+
         self._note(site, math.prod(x.shape[:-1]), w.shape[-1], 1)
-        return torch.matmul(x, w)
+        return plain_matmul(x, w)
 
     def einsum(self, spec: str, x: torch.Tensor, w: torch.Tensor, *, site: str) -> torch.Tensor:
         from repro_torch.core.ftcontext import EINSUM_SPECS

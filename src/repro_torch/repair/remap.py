@@ -19,7 +19,7 @@ from typing import Iterable, Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.ftcontext import SITES
+from repro_torch.core.ftcontext import SITES, plain_matmul
 from repro_torch.tree import stacked_leaves
 
 __all__ = [
@@ -114,7 +114,7 @@ class SalienceProbe:
 
     def matmul(self, x: torch.Tensor, w: torch.Tensor, *, site: str) -> torch.Tensor:
         self.protects(site)
-        out = torch.matmul(x, w)
+        out = plain_matmul(x, w)
         self._record(site, out)
         return out
 

@@ -359,7 +359,8 @@ def test_probe_check_pair_matches_plain_version_on_the_card():
 @pytest.mark.parametrize("arch,dispatch", [("qwen1.5-0.5b", "fused"), ("granite-moe-3b-a800m", "fused"),
                                            ("qwen1.5-0.5b", "plain"), ("granite-8b", "fused"),
                                            ("starcoder2-3b", "fused"), ("minicpm3-4b", "fused"),
-                                           ("llava-next-mistral-7b", "fused"), ("whisper-tiny", "fused")])
+                                           ("llava-next-mistral-7b", "fused"), ("whisper-tiny", "fused"),
+                                           ("rwkv6-7b", "fused"), ("zamba2-1.2b", "fused")])
 def test_captured_step_equals_eager_across_a_swap_on_the_card(arch, dispatch):
     """The smoke config served with the step captured as a CUDA graph and
     with the eager step, in each mode, with a fault injected mid-run (a

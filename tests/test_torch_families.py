@@ -26,6 +26,7 @@ import torch
 from repro.checkpoint import store as JS
 from repro.configs import get_config as j_config
 from repro.configs import get_smoke_config as j_smoke
+from repro.configs.registry import ARCH_IDS as J_ARCH_IDS
 from repro.models import layers as JLay
 from repro.models import lm as JL
 from repro.repair import remap as JR
@@ -34,7 +35,7 @@ from repro.serving import ModelBundle as JBundle
 from repro.serving import ServerConfig as JConfig
 from repro.serving.fault_manager import FaultInjector as JInjector
 from repro_torch.checkpoint import store as TS
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import engine as TE
 from repro_torch.core.ftcontext import build_ftcontext
 from repro_torch.core.redundancy import DPPUConfig as TDPPU
@@ -55,7 +56,6 @@ from test_torch_models import _contexts
 from test_torch_train import DTYPES, GRAD_TOL, LOGIT_TOL, LOSS_TOL, _ctxs, _leafwise_max_err
 
 ARCHS = ("granite-8b", "starcoder2-3b", "minicpm3-4b", "llava-next-mistral-7b", "whisper-tiny")
-RECURRENT = ("zamba2-1.2b", "rwkv6-7b")
 CONSISTENCY_TOL = 0.08  # rtol and atol, as tests/test_models.py holds the reference
 
 
@@ -112,12 +112,10 @@ def test_configs_match_jax(arch):
         assert (jc.dtype, tc.dtype) == (jnp.bfloat16, torch.bfloat16)
 
 
-def test_recurrent_families_wait_for_their_slice():
-    for arch in RECURRENT:
-        with pytest.raises(KeyError, match="recurrent slice"):
-            get_config(arch)
-        with pytest.raises(KeyError, match="recurrent slice"):
-            get_smoke_config(arch)
+def test_registry_is_the_reference_registry():
+    """The port's registry holds the reference registry's ten ids, in its
+    order, the recurrent ones included (tests/test_torch_recurrent.py)."""
+    assert ARCH_IDS == tuple(J_ARCH_IDS) and len(ARCH_IDS) == 10
 
 
 @pytest.mark.parametrize("arch", ARCHS)

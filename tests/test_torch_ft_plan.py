@@ -71,6 +71,22 @@ PLANS = [
     ("up_384x1536", 1, 4, 384, 1536, "n_fast", 4, 64),
     ("down_1536x384", 1, 4, 1536, 384, "n_fast", 8, 64),
     ("head_384x51968", 1, 4, 384, 51968, "k_fast", 1, 32),
+    # the recurrent families: rwkv6-7b's decay LoRA pair (w_b's plan reads
+    # w's dtype; its x is f32 on the path) and its untied head at K = 4096,
+    # scalar as granite-8b's; zamba2-1.2b's in_proj, out_proj, the shared
+    # block and the tied head
+    ("rkvgo_ffr_4096x4096", 1, 4, 4096, 4096, "n_fast", 1, 64),
+    ("w_a_4096x64", 1, 4, 4096, 64, "n_fast", 8, 64),
+    ("w_b_64x4096", 1, 4, 64, 4096, "n_fast", 1, 64),
+    ("ffk_4096x14336", 1, 4, 4096, 14336, "n_fast", 1, 64),
+    ("ffv_14336x4096", 1, 4, 14336, 4096, "n_fast", 1, 64),
+    ("head_4096x65536", 1, 4, 4096, 65536, "scalar", 1, 64),
+    ("in_proj_2048x8384", 1, 4, 2048, 8384, "n_fast", 1, 64),
+    ("out_proj_4096x2048", 1, 4, 4096, 2048, "n_fast", 2, 64),
+    ("qkvo_2048x2048", 1, 4, 2048, 2048, "n_fast", 2, 64),
+    ("gate_up_2048x8192", 1, 4, 2048, 8192, "n_fast", 1, 64),
+    ("down_8192x2048", 1, 4, 8192, 2048, "n_fast", 2, 64),
+    ("head_2048x32000", 1, 4, 2048, 32000, "k_fast", 1, 32),
 ]
 
 
@@ -111,7 +127,8 @@ def _full_width(cs, arch: str):
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-3b-a800m", "granite-8b", "starcoder2-3b",
-                                  "minicpm3-4b", "llava-next-mistral-7b", "whisper-tiny"])
+                                  "minicpm3-4b", "llava-next-mistral-7b", "whisper-tiny", "rwkv6-7b",
+                                  "zamba2-1.2b"])
 def test_decode_shapes_are_the_decode_steps(arch):
     """chip_smoke.py's DECODE_SHAPES and EXPERT_SHAPES, (M, K, N) and
     launches, are the full-width decode step's protected calls as recorded
@@ -123,7 +140,7 @@ def test_decode_shapes_are_the_decode_steps(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-3b-a800m", "minicpm3-4b",
-                                  "llava-next-mistral-7b", "whisper-tiny"])
+                                  "llava-next-mistral-7b", "whisper-tiny", "rwkv6-7b", "zamba2-1.2b"])
 def test_prefill_shapes_are_the_prefills(arch):
     """chip_smoke.py's PREFILL_SHAPES and PREFILL_EXPERT_SHAPES are the
     full-width fused prefill's protected calls at PREFILL's (B, S), with

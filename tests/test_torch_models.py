@@ -101,10 +101,9 @@ def test_init_params_and_cache_shapes():
     assert cache["attn"][0]["k"].dtype == torch.bfloat16
     full = get_config(ARCH)
     assert (full.n_layers, full.d_model, full.padded_vocab) == (24, 1024, 152064)
-    with pytest.raises(KeyError, match="RWKV6"):
-        get_config("rwkv6-7b")
-    with pytest.raises(NotImplementedError):
-        TL.init_cache(dataclasses.replace(cfg, family="ssm"), 1, 4, device="cpu")
+    assert get_config("rwkv6-7b").family == "ssm"
+    with pytest.raises(ValueError, match="unknown family"):
+        TL.init_cache(dataclasses.replace(cfg, family="rnn"), 1, 4, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
