@@ -170,6 +170,29 @@ Phases, each printed on its own line; any failure exits non-zero:
      the three modes captured and eager (captured equal to eager and
      protected to off bit for bit, unprotected different), the kernel times
      a decode step, and the fused prefill of 4 x 512 tokens.
+  13. the paper's own evaluation, after every model is freed; it launches
+     none of the five kernels (their counts, set to 0 before, must stay 0).
+     campaign — the campaign and fig10 twins at their quick sizes on the
+     card, whose tables must equal experiments/bench/campaign.json's and
+     fig10_ffp.json's float for float; then fig10's full size (3000 configs
+     on 32 x 32, both fault models, every PER) and fig14's (1500 configs on
+     16 x 16 to 128 x 128, both models, its four PERs): at every point each
+     scheme's (ff, surviving columns), HyCA's under repair="remap" too, on
+     the card equals the port's batched evaluator on the CPU and the numpy
+     per-config loop, config by config (the numpy sampling and loop run in
+     CAMPAIGN_WORKERS processes beside the card); sampler="device" on the
+     card: the random rate within its binomial CI, every clustered map
+     carrying exactly its count and in bounds at sigma 0.5, 1.5 and 500,
+     the DPPU capacity mean within the numpy sampler's CI; seconds per point
+     on the card beside the numpy loop's, DR's evaluator ms at 32 x 32 /
+     3000 and 128 x 128 / 1500.  accuracy_campaign — the fig02 twin at full
+     size (50 configs x 7 PERs x 1024 test rows, the MLP trained on the
+     card): its six claims (every config within capacity predicts exactly
+     the clean predictions); on 4 configs per PER, each layer's
+     hyca_matmul_batched on the card equal to the per-config hyca_matmul and
+     to the same batched call on the CPU, bit for bit, protected and
+     unprotected; seconds per PER point and the twin's peak device memory
+     above what was allocated before it.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -2581,6 +2604,215 @@ def serve_retrain_phase(dev, smi: str, bundle, prot: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# the paper's own evaluation: the campaign engine and the Fig. 2 accuracy campaign
+# --------------------------------------------------------------------------- #
+CAMPAIGN_WORKERS = 7  # numpy sampling + per-config reference loops, beside the card
+FIG10_PERS = (0.005, 0.01, 0.02, 0.025, 0.03, 0.0313, 0.035, 0.04, 0.06)  # benchmarks/fig10_ffp.py
+FIG14_SIZES = (16, 32, 64, 128)  # benchmarks/fig14_scalability.py, square arrays
+FIG14_PERS = (0.005, 0.01, 0.02, 0.03)
+
+
+def _reference_point(task):
+    """Worker: one operating point sampled with the numpy sampler and
+    evaluated with the per-config numpy loop (every scheme, and HyCA under
+    repair="remap"); its seconds of each."""
+    from repro_torch.core import campaign as cp
+
+    spec, per, seed = task
+    t0 = time.perf_counter()
+    point = cp.sample_point(spec, per, seed=seed)
+    t1 = time.perf_counter()
+    ref = {s: cp.evaluate_reference(point, s) for s in spec.schemes}
+    ref["HyCA/remap"] = cp.evaluate_reference(point, "HyCA", "remap")
+    return task, point, ref, t1 - t0, time.perf_counter() - t1
+
+
+def _evaluate_all(cp, point, dev):
+    """Every scheme's (ff, surv) on ``dev`` (HyCA also under remap), each
+    with its seconds (synchronised)."""
+    maps = torch.as_tensor(point.maps).to(dev)
+    out, secs = {}, {}
+    for key in ("RR", "CR", "DR", "HyCA", "HyCA/remap"):
+        scheme, _, repair = key.partition("/")
+        aux = point.hyca_caps if scheme == "HyCA" else point.spare_faulty[scheme]
+        t0 = time.perf_counter()
+        ff, surv = cp.evaluate_batched(maps, torch.as_tensor(aux).to(dev), scheme=scheme, repair=repair or "none")
+        out[key] = (ff.cpu().numpy(), surv.cpu().numpy())
+        secs[key] = time.perf_counter() - t0
+    return out, secs
+
+
+def _table_equals(name: str, table: dict) -> bool:
+    """``table`` equals the reference's result file's, float for float."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "bench", f"{name}.json")
+    with open(path) as f:
+        ref = json.load(f)["table"]
+    return json.loads(json.dumps(table, default=float)) == ref
+
+
+def campaign_phase(dev, smi) -> dict:
+    import multiprocessing
+
+    from repro_torch.bench import campaign as tw_campaign
+    from repro_torch.bench import fig10_ffp as tw_fig10
+    from repro_torch.core import campaign as cp
+    from repro_torch.core import redundancy as red
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": smi}
+    # 1. the twins at quick size: the reference's tables, float for float
+    for name, twin in (("campaign", tw_campaign), ("fig10_ffp", tw_fig10)):
+        t0 = time.perf_counter()
+        res = twin.run(True, device=dev)
+        out[f"{name}_quick_s"] = time.perf_counter() - t0
+        check(res["all_ok"], f"{name} twin claims: {[c for c in res['claims'] if not c['ok']]}")
+        check(_table_equals(name, res["table"]), f"{name} twin's quick table differs from experiments/bench/{name}.json")
+    # 2. full sizes: card == CPU == numpy loop, config by config
+    tasks = []
+    for model in ("random", "clustered"):
+        spec = cp.CampaignSpec(rows=32, cols=32, fault_model=model, n_configs=3000, dppu=red.DPPUConfig(size=32))
+        tasks += [(spec, p, cp.point_seed(0, i)) for i, p in enumerate(FIG10_PERS)]
+        for size in FIG14_SIZES:
+            spec = cp.CampaignSpec(rows=size, cols=size, fault_model=model, n_configs=1500,
+                                   dppu=red.DPPUConfig(size=size))
+            tasks += [(spec, p, cp.point_seed(0, i)) for i, p in enumerate(FIG14_PERS)]
+    # the longest numpy work first, so the workers finish together
+    tasks.sort(key=lambda t: -t[0].rows * t[0].cols * t[0].n_configs * t[1] * (3 if t[0].fault_model == "clustered" else 1))
+    per_cell: dict = {}
+    dr_ms: dict = {}
+    configs = 0
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(CAMPAIGN_WORKERS) as pool:
+        for (spec, per, _), point, ref, sample_s, numpy_s in pool.imap_unordered(_reference_point, tasks):
+            card, card_s = _evaluate_all(cp, point, dev)
+            cpu, _ = _evaluate_all(cp, point, "cpu")
+            for key, (ff, surv) in ref.items():
+                for name, got in (("card", card[key]), ("cpu", cpu[key])):
+                    check(np.array_equal(got[0], ff) and np.array_equal(got[1], surv),
+                          f"campaign {spec.fault_model} {spec.rows}x{spec.cols} per={per} {key}: {name} != numpy loop "
+                          f"({int((got[0] != ff).sum())} ff, {int((got[1] != surv).sum())} surv differ)")
+            configs += spec.n_configs
+            cell = per_cell.setdefault(f"{spec.rows}x{spec.cols}/{spec.n_configs}", dict(points=0, card_s=0.0, numpy_s=0.0, sample_s=0.0))
+            cell["points"] += 1
+            cell["card_s"] += sum(card_s.values())
+            cell["numpy_s"] += numpy_s
+            cell["sample_s"] += sample_s
+            dr_ms.setdefault(f"{spec.rows}x{spec.cols}/{spec.n_configs}", []).append(card_s["DR"] * 1e3)
+    per_point = {k: dict(points=v["points"], card_s_per_point=v["card_s"] / v["points"],
+                         numpy_loop_s_per_point=v["numpy_s"] / v["points"],
+                         numpy_sample_s_per_point=v["sample_s"] / v["points"]) for k, v in per_cell.items()}
+    out.update(points=len(tasks), configs_checked=configs, equal_card_cpu_numpy=True, per_point=per_point,
+               dr_ms={k: dict(median=float(np.median(v)), max=float(np.max(v))) for k, v in dr_ms.items()
+                      if k in ("32x32/3000", "128x128/1500")})
+    # 3. the device samplers on the card, held statistically
+    per, n, rows, cols = 0.02, 3000, 32, 32
+    maps = cp.device_random_maps(11, n, rows, cols, per, device=dev)
+    rate = maps.float().mean().item()
+    hw = cp.binomial_halfwidth(per, n * rows * cols, z=4.0)
+    check(abs(rate - per) < hw, f"device_random_maps rate {rate} not within {per} +- {hw}")
+    sigmas = {}
+    for sigma in (0.5, 1.5, 500.0):
+        m = cp.device_clustered_maps(12, 1500, rows, cols, 0.03, cluster_sigma=sigma, device=dev)
+        g = torch.Generator(device=dev).manual_seed(12)
+        target = (torch.rand((1500, rows * cols), generator=g, device=dev) < 0.03).sum(dim=1)
+        check(m.shape == (1500, rows, cols) and m.dtype == torch.bool, f"clustered maps {m.shape} {m.dtype}")
+        check(torch.equal(m.reshape(1500, -1).sum(dim=1), target), f"clustered maps at sigma {sigma} miss their counts")
+        r = m.float().mean().item()
+        check(abs(r - 0.03) < cp.binomial_halfwidth(0.03, m.numel(), z=4.0), f"clustered rate {r} at sigma {sigma}")
+        sigmas[str(sigma)] = r
+    dcfg = red.DPPUConfig(size=32)
+    dcap = cp.device_dppu_capacity(13, dcfg, 0.02, n, device=dev).cpu().numpy()
+    ncap = red.dppu_capacity(np.random.default_rng(13), dcfg, 0.02, n)
+    tol = cp.mean_halfwidth(dcap, z=4.0) + cp.mean_halfwidth(ncap, z=4.0)
+    check(abs(dcap.mean() - ncap.mean()) < tol, f"device DPPU capacity mean {dcap.mean()} vs numpy {ncap.mean()} (+-{tol})")
+    spec = cp.CampaignSpec(rows=32, cols=32, n_configs=3000, sampler="device", dppu=dcfg)
+    t0 = time.perf_counter()
+    drun = cp.run_campaign(spec, FIG10_PERS, device=dev)
+    torch.cuda.synchronize()
+    device_sampler_s = (time.perf_counter() - t0) / len(FIG10_PERS)
+    check(drun.table()["HyCA"][0.01] > 0.9 and drun.table()["HyCA"][0.06] >= drun.table()["RR"][0.06],
+          f"device-sampled campaign: {drun.table()}")
+    out.update(device_random_rate=rate, device_clustered_rates=sigmas, device_capacity_mean=float(dcap.mean()),
+               numpy_capacity_mean=float(ncap.mean()), device_sampler_campaign_s_per_point=device_sampler_s,
+               seconds=time.perf_counter() - t_phase)
+    phase("campaign", **out)
+    return out
+
+
+def accuracy_campaign_phase(dev, smi) -> dict:
+    from repro_torch.bench import fig02_accuracy_vs_per as fig02
+    from repro_torch.core.campaign import take_config
+    from repro_torch.core.engine import HyCAConfig, hyca_matmul, hyca_matmul_batched
+
+    peaks, held, base = [], [], [0]
+    cfgs = (HyCAConfig(mode="protected"), HyCAConfig(mode="unprotected"))
+
+    def hold_point(per, mlp, xte, states) -> int:
+        """Each layer's batched call on the card against the same call on the
+        CPU and against hyca_matmul per config, on 4 configs; returns 4."""
+        n = states.fpt.shape[0]
+        picks = sorted({0, n // 3, (2 * n) // 3, n - 1})
+        cpu_states = states.to("cpu")
+        ws = mlp.weights(dev)
+        for cfg in cfgs:
+            h = torch.from_numpy(xte).to(dev)
+            for i, w in enumerate(ws):
+                hq = mlp.layer_input(h, i)
+                x_axis = None if i == 0 else 0
+                card = hyca_matmul_batched(hq, w, states, cfg=cfg, x_axis=x_axis)
+                cpu = hyca_matmul_batched(hq.cpu(), w.cpu(), cpu_states, cfg=cfg, x_axis=x_axis)
+                check(torch.equal(card.cpu(), cpu), f"fig02 per={per} {cfg.mode} layer {i}: card != CPU")
+                for j in picks:
+                    one = hyca_matmul(hq if i == 0 else hq[j], w, take_config(states, j), cfg=cfg)
+                    check(torch.equal(card[j], one), f"fig02 per={per} {cfg.mode} layer {i} config {j}: batched != hyca_matmul")
+                h = mlp.layer_output(card, i)
+        return len(picks)
+
+    def reset_peak() -> None:
+        # the twin's own peak is read above what stays allocated from before
+        torch.cuda.synchronize()
+        base[0] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    def check_point(per, mlp, xte, states):
+        peaks.append(torch.cuda.max_memory_allocated() - base[0])  # the twin's, before these checks
+        held.append(hold_point(per, mlp, xte, states))
+        reset_peak()
+
+    reset_peak()
+    allocated_before = base[0]
+    t0 = time.perf_counter()
+    res = fig02.run(False, device=dev, check_point=check_point)
+    seconds = time.perf_counter() - t0
+    check(res["all_ok"], f"fig02 twin claims: {[c for c in res['claims'] if not c['ok']]}")
+    check(len(held) == len(fig02.PERS) and min(held) == 4, f"fig02 checks ran at {held}")
+    out = dict(n_configs=res["n_configs"], n_test=res["n_test"], pers=fig02.PERS, clean_acc=res["clean_acc"],
+               unprotected_mean={str(p): a["mean"] for p, a in res["accuracy"]["unprotected"].items()},
+               protected_mean={str(p): a["mean"] for p, a in res["accuracy"]["protected"].items()},
+               recovered_exact=res["recovered_exact"], claims=[c["claim"] for c in res["claims"]],
+               configs_checked_bitwise=sum(held) * len(cfgs), seconds_per_point=res["seconds_per_point"],
+               seconds=seconds, peak_bytes_above_allocated=max(peaks), allocated_before_bytes=allocated_before,
+               card=smi)
+    phase("accuracy_campaign", **out)
+    return out
+
+
+def paper_phases(dev, smi) -> None:
+    """The paper's own evaluation, counted from 0: it must launch none of
+    the csrc kernels."""
+    kernels = {**_kernels(), **_two_pass_kernels()}
+    before = {name: k.launches for name, k in kernels.items()}
+    for k in kernels.values():
+        k.launches = 0
+    campaign_phase(dev, smi)
+    accuracy_campaign_phase(dev, smi)
+    launched = {name: k.launches for name, k in kernels.items()}
+    check(not any(launched.values()), f"the campaign phases launched csrc kernels: {launched}")
+    for name, k in kernels.items():
+        k.launches = before[name]
+
+
 def main() -> None:
     smi = device_phase()
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
@@ -2623,6 +2855,7 @@ def main() -> None:
         del bundle, runs
         gc.collect()
         torch.cuda.empty_cache()
+    paper_phases(dev, smi)
 
     def matmul_row(name: str, replaces: str) -> dict:
         paths = {arch: t[name] for arch, t in per_path.items() if name in t}

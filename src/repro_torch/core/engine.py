@@ -92,36 +92,58 @@ class FaultState:
           * overflow beyond ``max_faults`` keeps the leftmost entries and
             drops the rest.
         """
-        rows, cols = detected.shape
+        one = FaultState(self.fpt[None], self.stuck_bit[None], self.stuck_val[None])
+        out = one.merge_batched(
+            detected[None],
+            stuck_bit=None if stuck_bit is None else stuck_bit[None],
+            stuck_val=None if stuck_val is None else stuck_val[None],
+        )
+        return FaultState(out.fpt[0], out.stuck_bit[0], out.stuck_val[0])
+
+    def merge_batched(
+        self,
+        detected: torch.Tensor,
+        *,
+        stuck_bit: torch.Tensor | None = None,
+        stuck_val: torch.Tensor | None = None,
+    ) -> "FaultState":
+        """:meth:`merge` over a leading config axis (the reference's
+        ``vmap`` of ``merge``): this state's leaves are (n, max_faults, 2)
+        and (n, max_faults), ``detected`` and the signature grids (n, rows,
+        cols).  Config ``i`` of the result is config ``i``'s own
+        :meth:`merge`: dedup, leftmost-first order, -1 padding and overflow
+        all per config."""
+        n, rows, cols = detected.shape
         dev = detected.device
-        bit0, val0, faulty0 = _pe_grids(self, rows, cols)
+        bit0, val0, faulty0 = _pe_grids_batched(self, rows, cols)
         new = detected & ~faulty0
         faulty = faulty0 | detected
-        zero = torch.zeros((rows, cols), dtype=torch.int32, device=dev)
+        zero = torch.zeros((n, rows, cols), dtype=torch.int32, device=dev)
         bit = torch.where(new, zero if stuck_bit is None else stuck_bit.to(torch.int32), bit0)
         val = torch.where(new, zero if stuck_val is None else stuck_val.to(torch.int32), val0)
-        # pack: leftmost-first (col, then row) over the flattened grid
+        # pack: leftmost-first (col, then row) over each flattened grid
         ci = torch.arange(cols, device=dev)[None, :].expand(rows, cols)
         ri = torch.arange(rows, device=dev)[:, None].expand(rows, cols)
         sentinel = rows * cols
-        key = torch.where(faulty, ci * rows + ri, torch.full_like(ci, sentinel)).reshape(-1)
-        order = torch.argsort(key, stable=True)
-        taken = key[order] < sentinel
-        if self.max_faults <= rows * cols:
-            order, taken = order[: self.max_faults], taken[: self.max_faults]
+        key = torch.where(faulty, ci * rows + ri, torch.full_like(ci, sentinel)).reshape(n, -1)
+        order = torch.argsort(key, dim=1, stable=True)
+        taken = key.gather(1, order) < sentinel
+        m = self.fpt.shape[1]
+        if m <= rows * cols:
+            order, taken = order[:, :m], taken[:, :m]
         else:
             # more FPT slots than PEs: pad rather than shrink the table
-            pad = self.max_faults - rows * cols
-            order = torch.cat([order, torch.zeros(pad, dtype=order.dtype, device=dev)])
-            taken = torch.cat([taken, torch.zeros(pad, dtype=torch.bool, device=dev)])
+            pad = m - rows * cols
+            order = torch.cat([order, torch.zeros((n, pad), dtype=order.dtype, device=dev)], dim=1)
+            taken = torch.cat([taken, torch.zeros((n, pad), dtype=torch.bool, device=dev)], dim=1)
         neg = torch.full_like(order, -1)
         r = torch.where(taken, order // cols, neg).to(torch.int32)
         c = torch.where(taken, order % cols, neg).to(torch.int32)
         zf = torch.zeros_like(order, dtype=torch.int32)
         return FaultState(
-            torch.stack([r, c], dim=1),
-            torch.where(taken, bit.reshape(-1)[order], zf).to(torch.int32),
-            torch.where(taken, val.reshape(-1)[order], zf).to(torch.int32),
+            torch.stack([r, c], dim=-1),
+            torch.where(taken, bit.reshape(n, -1).gather(1, order), zf).to(torch.int32),
+            torch.where(taken, val.reshape(n, -1).gather(1, order), zf).to(torch.int32),
         )
 
 
@@ -260,40 +282,59 @@ def _corrupt_elems(out: torch.Tensor, bi, vi, fi) -> torch.Tensor:
     return torch.where(fi, bad, out32).to(out.dtype)
 
 
-def _scatter_grid(state: FaultState, rows: int, cols: int, values, dtype, k: int | None = None):
-    """Scatter the first ``k`` FPT entries' ``values`` into a dense (rows,
-    cols) grid; padding lands in a discard slot past the grid."""
-    fpt = state.fpt if k is None else state.fpt[:k]
-    valid = fpt[:, 0] >= 0
+def _scatter_grids(fpt: torch.Tensor, rows: int, cols: int, values, dtype, k: int | None = None):
+    """Scatter the first ``k`` entries' ``values`` of a batch of FPTs, (n,
+    max_faults, 2), into dense (n, rows, cols) grids with one scatter.
+    Padding and entries past ``k`` land in a discard slot past each grid,
+    the only slot that takes duplicates: a CUDA scatter keeps an arbitrary
+    writer of a duplicated index."""
+    n, m = fpt.shape[:2]
+    keep = fpt[..., 0] >= 0
+    if k is not None:
+        keep = keep & (torch.arange(m, device=fpt.device) < k)
     flat = torch.where(
-        valid, fpt[:, 0].long() * cols + fpt[:, 1].long(),
-        torch.full_like(fpt[:, 0], rows * cols, dtype=torch.long),
+        keep, fpt[..., 0].long() * cols + fpt[..., 1].long(),
+        torch.full((n, m), rows * cols, dtype=torch.long, device=fpt.device),
     )
-    grid = torch.zeros(rows * cols + 1, dtype=dtype, device=fpt.device)
-    grid[flat] = values
-    return grid[: rows * cols].view(rows, cols)
+    src = values.to(dtype) if torch.is_tensor(values) else torch.full((n, m), values, dtype=dtype, device=fpt.device)
+    grid = torch.zeros((n, rows * cols + 1), dtype=dtype, device=fpt.device)
+    grid.scatter_(1, flat, src)
+    return grid[:, : rows * cols].view(n, rows, cols)
+
+
+def _pe_grids_batched(states: FaultState, rows: int, cols: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Scatter a batch of FPTs into dense (n, rows, cols) bit/val/faulty grids."""
+    bit = _scatter_grids(states.fpt, rows, cols, states.stuck_bit, torch.int32)
+    val = _scatter_grids(states.fpt, rows, cols, states.stuck_val, torch.int32)
+    faulty = _scatter_grids(states.fpt, rows, cols, True, torch.bool)
+    return bit, val, faulty
 
 
 def _pe_grids(state: FaultState, rows: int, cols: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Scatter the FPT into dense (rows, cols) bit/val/faulty grids."""
-    bit = _scatter_grid(state, rows, cols, state.stuck_bit.to(torch.int32), torch.int32)
-    val = _scatter_grid(state, rows, cols, state.stuck_val.to(torch.int32), torch.int32)
-    faulty = _scatter_grid(state, rows, cols, True, torch.bool)
-    return bit, val, faulty
+    one = FaultState(state.fpt[None], state.stuck_bit[None], state.stuck_val[None])
+    bit, val, faulty = _pe_grids_batched(one, rows, cols)
+    return bit[0], val[0], faulty[0]
+
+
+def _repaired_grids(fpt: torch.Tensor, rows: int, cols: int, n_repair: int) -> torch.Tensor:
+    """Dense (n, rows, cols) bool grids of DPPU-repaired PEs: the first
+    ``n_repair`` valid entries of each FPT (the FPTs are leftmost-sorted)."""
+    k = min(max(n_repair, 0), fpt.shape[1])
+    if k == 0:
+        return torch.zeros((fpt.shape[0], rows, cols), dtype=torch.bool, device=fpt.device)
+    return _scatter_grids(fpt, rows, cols, True, torch.bool, k=k)
 
 
 def repaired_grid(state: FaultState, rows: int, cols: int, n_repair: int) -> torch.Tensor:
     """Dense (rows, cols) bool grid of DPPU-repaired PEs: the first
     ``n_repair`` valid FPT entries (the FPT is leftmost-sorted)."""
-    k = min(max(n_repair, 0), state.max_faults)
-    if k == 0:
-        return torch.zeros((rows, cols), dtype=torch.bool, device=state.device)
-    return _scatter_grid(state, rows, cols, True, torch.bool, k=k)
+    return _repaired_grids(state.fpt[None], rows, cols, n_repair)[0]
 
 
-def _repair_clamp(state: FaultState, cfg: HyCAConfig, n_repair: int | None) -> int:
+def _repair_clamp(max_faults: int, cfg: HyCAConfig, n_repair: int | None) -> int:
     # the DPPU can never repair more faults than it has capacity for
-    return cfg.capacity if n_repair is None else min(n_repair, state.max_faults, cfg.capacity)
+    return cfg.capacity if n_repair is None else min(n_repair, max_faults, cfg.capacity)
 
 
 def _int_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -341,7 +382,7 @@ def hyca_matmul(
     if cfg.mode == "unprotected":
         repaired = torch.zeros((cfg.rows, cfg.cols), dtype=torch.bool, device=out.device)
     else:
-        repaired = repaired_grid(state, cfg.rows, cfg.cols, _repair_clamp(state, cfg, n_repair))
+        repaired = repaired_grid(state, cfg.rows, cfg.cols, _repair_clamp(state.max_faults, cfg, n_repair))
     prune = None
     if plan is not None:
         # remap: residue class c is computed by PE column col_map[c]
@@ -354,6 +395,109 @@ def hyca_matmul(
     res = torch.where(repaired[mi, ni], out2, corrupted)
     if prune is not None:
         res = torch.where(prune[mi, ni], torch.zeros((), dtype=res.dtype, device=res.device), res)
+    return res.reshape(shape)
+
+
+def validate_fault_states(states: FaultState, rows: int, cols: int) -> FaultState:
+    """:func:`validate_fault_state` for a batch of FPTs, (n, max_faults, 2),
+    with one host read for the whole batch."""
+    fpt = states.fpt.detach().cpu().numpy()
+    if fpt.ndim != 3 or fpt.shape[2] != 2:
+        raise ValueError(f"batched FPT must be (n, max_faults, 2), got shape {fpt.shape}")
+    validate_fault_state(FaultState(torch.from_numpy(fpt.reshape(-1, 2)), states.stuck_bit, states.stuck_val), rows, cols)
+    return states
+
+
+def validate_repair_plans(plans: RepairPlan, rows: int, cols: int) -> RepairPlan:
+    """:func:`validate_repair_plan` for a batch of plans (``col_map`` (n,
+    cols), ``prune`` (n, rows, cols)), with one host read for the batch."""
+    cm = plans.col_map.detach().cpu().numpy()
+    if cm.ndim != 2 or cm.shape[1] != cols or not (np.sort(cm, axis=1) == np.arange(cols)).all():
+        raise ValueError(f"each RepairPlan.col_map must be a permutation of range({cols}), got shape {cm.shape}")
+    if tuple(plans.prune.shape) != (cm.shape[0], rows, cols):
+        raise ValueError(
+            f"batched RepairPlan.prune must be ({cm.shape[0]}, {rows}, {cols}), got shape {tuple(plans.prune.shape)}"
+        )
+    return plans
+
+
+# operand dtypes whose products fit 31 bits: a float64 product of them is an
+# exact integer while the sum stays under 2**53, i.e. up to K = 2**22 terms
+_SMALL_INTS = (torch.int8, torch.uint8, torch.int16)
+
+
+def _int_matmul_batched(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The int32 accumulate of :func:`_int_matmul`, wrapping alike, without
+    its (..., M, K, N) int64 product: small-integer operands go through a
+    float64 matmul, exact below 2**53; anything else one leading index at a
+    time."""
+    if x.dtype in _SMALL_INTS and w.dtype in _SMALL_INTS and x.shape[-1] <= 1 << 22:
+        return torch.matmul(x.to(torch.float64), w.to(torch.float64)).to(torch.int64).to(torch.int32)
+    if x.ndim < 3:
+        return _int_matmul(x, w)
+    return torch.stack([_int_matmul(xi, w) for xi in x])
+
+
+def hyca_matmul_batched(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    states: FaultState,
+    *,
+    cfg: HyCAConfig,
+    plans: RepairPlan | None = None,
+    n_repair: int | None = None,
+    x_axis: int | None = 0,
+) -> torch.Tensor:
+    """:func:`hyca_matmul` over a batch of fault configs, the counterpart of
+    ``jax.vmap(hyca_matmul)``: ``states`` (and ``plans``, if given) carry a
+    leading config axis.  ``x_axis=None`` shares one x, (..., K), across
+    every config (``in_axes=None``); ``x_axis=0`` reads x's leading axis as
+    the config axis.  Config ``i`` of the (n, ..., N) result is
+    ``hyca_matmul(x_i, w, take_config(states, i), cfg=cfg, plan=plan_i)``:
+    bit for bit for integer operands, whose exact route never holds the
+    (..., M, K, N) product; a float product may round as a batched matmul
+    does.  The tables are validated once for the batch, and each grid comes
+    from one scatter for all configs."""
+    if x_axis not in (None, 0):
+        raise ValueError(f"x_axis must be None or 0, got {x_axis!r}")
+    n = states.fpt.shape[0]
+    validate_fault_states(states, cfg.rows, cfg.cols)
+    if plans is not None:
+        validate_repair_plans(plans, cfg.rows, cfg.cols)
+    if x_axis == 0 and x.shape[0] != n:
+        raise ValueError(f"x carries {x.shape[0]} configs, the fault states {n}")
+    if x.dtype.is_floating_point:
+        out = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    else:
+        out = _int_matmul_batched(x, w)
+    if x_axis is None:
+        out = out.expand(n, *out.shape)
+    if cfg.mode == "off":
+        return out.contiguous()
+    shape = out.shape
+    out2 = out.reshape(n, -1, shape[-1])
+    rows, cols = cfg.rows, cfg.cols
+    bit, val, faulty = _pe_grids_batched(states, rows, cols)
+    if cfg.mode == "unprotected":
+        repaired = torch.zeros((n, rows, cols), dtype=torch.bool, device=out.device)
+    else:
+        repaired = _repaired_grids(states.fpt, rows, cols, _repair_clamp(states.fpt.shape[1], cfg, n_repair))
+    prune = None
+    if plans is not None:
+        # remap: residue class c is computed by PE column col_map[c]
+        cm = plans.col_map.long()[:, None, :].expand(n, rows, cols)
+        bit, val, faulty, repaired = (g.gather(2, cm) for g in (bit, val, faulty, repaired))
+        prune = plans.prune.gather(2, cm)
+    mi, ni = _residues(out2.shape[1], out2.shape[2], rows, cols, out.device)
+
+    def elems(g: torch.Tensor) -> torch.Tensor:
+        return g[:, mi, ni]
+
+    corrupted = _corrupt_elems(out2, elems(bit), elems(val), elems(faulty))
+    # DPPU overwrite: the recomputed (correct) value wherever repaired
+    res = torch.where(elems(repaired), out2, corrupted)
+    if prune is not None:
+        res = torch.where(elems(prune), torch.zeros((), dtype=res.dtype, device=res.device), res)
     return res.reshape(shape)
 
 
@@ -381,7 +525,7 @@ def fault_meta_grid(
     if cfg.mode == "unprotected":
         repaired = torch.zeros((cfg.rows, cfg.cols), dtype=torch.bool, device=state.device)
     else:
-        repaired = repaired_grid(state, cfg.rows, cfg.cols, _repair_clamp(state, cfg, n_repair))
+        repaired = repaired_grid(state, cfg.rows, cfg.cols, _repair_clamp(state.max_faults, cfg, n_repair))
     if plan is not None:
         cm = plan.col_map.long()
         bit, val, faulty, repaired = bit[:, cm], val[:, cm], faulty[:, cm], repaired[:, cm]
@@ -602,7 +746,7 @@ def protected_view_stats(
     if cfg.mode == "unprotected":
         repaired = torch.zeros((cfg.rows, cfg.cols), dtype=torch.bool, device=device)
     else:
-        repaired = repaired_grid(state, cfg.rows, cfg.cols, _repair_clamp(state, cfg, n_repair))
+        repaired = repaired_grid(state, cfg.rows, cfg.cols, _repair_clamp(state.max_faults, cfg, n_repair))
     if plan is not None:
         cm = plan.col_map.long()
         faulty, repaired = faulty[:, cm], repaired[:, cm]

@@ -364,11 +364,21 @@ def build_ftcontext(
     """Build an :class:`FTContext`.  The fused dispatch needs no backend
     choice here: :func:`~repro_torch.kernels.ft_matmul.ft_matmul` launches the
     CUDA kernel for CUDA tensors and its plain twin for CPU tensors.  The
-    fault table and plan are validated against the array geometry now."""
+    fault table and plan are validated against the array geometry now.
+
+    ``fused_block``: ``None`` or ``"auto"`` (the reference's default); both
+    take the kernels' fixed launch plan, the rule
+    :func:`~repro_torch.kernels.ft_matmul.ft_plan` of shape, dtype and
+    layout.  The port has no block autotuning, so an explicit block and
+    ``autotune_shapes`` raise."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"unknown dispatch {dispatch!r}; known: {DISPATCHES}")
-    if fused_block is not None or autotune_shapes:
-        raise NotImplementedError("kernel-block autotuning comes with the kernel-tier slice")
+    if fused_block not in (None, "auto") or autotune_shapes:
+        raise NotImplementedError(
+            f"fused_block={fused_block!r}, autotune_shapes={autotune_shapes!r}: the port's kernels "
+            "take no block; their launch plan is the fixed rule kernels/ft_matmul.py::ft_plan "
+            "(pass fused_block=None or 'auto')"
+        )
     policy = policy or ProtectPolicy()
     if state is not None:
         validate_fault_state(state, hyca.rows, hyca.cols)

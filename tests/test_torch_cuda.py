@@ -579,3 +579,65 @@ def test_fused_prefill_on_the_card(arch):
     assert not torch.equal(off.view(torch.int32), bad.view(torch.int32))
     cpu = prefill(two, "unprotected", "cpu")
     assert float((bad.cpu() - cpu).abs()[..., :cfg.vocab].max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols,model", [(32, 32, "clustered"), (12, 40, "random")])
+def test_campaign_evaluator_on_the_card_equals_the_cpu(rows, cols, model):
+    """The batched repair evaluator on the card: every scheme's (ff,
+    surviving columns), HyCA under repair="remap" too, equal to the CPU's and
+    to the per-config numpy loop's, config by config; ``run_campaign`` on
+    the card equal to the numpy engine field for field."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import campaign as cp
+    from repro_torch.core.redundancy import DPPUConfig
+
+    spec = cp.CampaignSpec(rows=rows, cols=cols, fault_model=model, n_configs=400, dppu=DPPUConfig(size=cols))
+    for i, per in enumerate((0.01, 0.04)):
+        point = cp.sample_point(spec, per, seed=cp.point_seed(0, i))
+        for scheme, repair in (("RR", "none"), ("CR", "none"), ("DR", "none"), ("HyCA", "none"), ("HyCA", "remap")):
+            aux = point.hyca_caps if scheme == "HyCA" else point.spare_faulty[scheme]
+            outs = [cp.evaluate_batched(torch.from_numpy(point.maps).to(d), torch.from_numpy(aux).to(d),
+                                        scheme=scheme, repair=repair) for d in ("cuda", "cpu")]
+            ff, surv = cp.evaluate_reference(point, scheme, repair)
+            for got_ff, got_surv in outs:
+                assert np.array_equal(got_ff.cpu().numpy(), ff) and np.array_equal(got_surv.cpu().numpy(), surv)
+    card = cp.run_campaign(spec, (0.01, 0.04))
+    ref = cp.run_campaign(spec, (0.01, 0.04), engine="reference")
+    assert [r.as_dict() for r in card.results] == [r.as_dict() for r in ref.results]
+
+
+@pytest.mark.cuda
+def test_hyca_matmul_batched_and_device_samplers_on_the_card():
+    """``hyca_matmul_batched`` on the card over full-range int8 operands:
+    equal to the CPU's and to the per-config ``hyca_matmul``, protected,
+    unprotected and with remap plans; the clustered device sampler keeps
+    every map's exact count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import campaign as cp
+    from repro_torch.core.fault_models import random_fault_maps
+    from repro_torch.core.redundancy import DPPUConfig
+
+    rng = np.random.default_rng(0)
+    maps = random_fault_maps(rng, 24, 16, 16, 0.06)
+    states = {d: cp.batched_fault_states(maps, seed=3, device=d) for d in ("cuda", "cpu")}
+    sal = rng.random(16).astype(np.float32)
+    plans = {d: cp.batched_repair_plans(states[d], sal, rows=16, cols=16, capacity=8, device=d) for d in states}
+    assert torch.equal(plans["cuda"].col_map.cpu(), plans["cpu"].col_map)
+    x = torch.from_numpy(rng.integers(-128, 128, (24, 70, 300)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (300, 48)).astype(np.int8))
+    for mode in ("protected", "unprotected"):
+        cfg = TE.HyCAConfig(16, 16, DPPUConfig(size=8, group_size=8), mode)
+        for use_plans in (False, True):
+            out = {d: TE.hyca_matmul_batched(x.to(d), w.to(d), states[d], cfg=cfg,
+                                             plans=plans[d] if use_plans else None) for d in states}
+            assert torch.equal(out["cuda"].cpu(), out["cpu"])
+            for i in (0, 23):
+                plan = TE.RepairPlan(plans["cuda"].col_map[i], plans["cuda"].prune[i]) if use_plans else None
+                one = TE.hyca_matmul(x[i].cuda(), w.cuda(), cp.take_config(states["cuda"], i), cfg=cfg, plan=plan)
+                assert torch.equal(out["cuda"][i], one)
+    m = cp.device_clustered_maps(5, 300, 16, 16, 0.05)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    assert torch.equal(m.reshape(300, -1).sum(1), (torch.rand((300, 256), generator=g, device="cuda") < 0.05).sum(1))

@@ -147,6 +147,28 @@ def test_site_policy_and_validation():
         tftc.increment()
 
 
+@pytest.mark.parametrize("dispatch", ["plain", "twopass", "fused"])
+@pytest.mark.parametrize("mode", ["protected", "unprotected"])
+def test_fused_block_auto_is_the_fixed_plan(dispatch, mode):
+    """``fused_block="auto"``, the reference's default, builds the context
+    ``None`` builds (the fixed launch plan ``ft_plan``): bit-identical
+    outputs, equal to JAX's default context; an explicit block and
+    ``autotune_shapes`` still raise."""
+    jftc, none = _contexts(FAULTS, mode, dispatch)
+    _, auto = _contexts(FAULTS, mode, dispatch, fused_block="auto")
+    x, w = _int_operands((3, 12), 10, seed=4)
+    for site in ("attn.qkv", "ffn", "head"):
+        a = auto.matmul(torch.from_numpy(x), torch.from_numpy(w), site=site)
+        b = none.matmul(torch.from_numpy(x), torch.from_numpy(w), site=site)
+        j = np.asarray(jftc.matmul(jnp.asarray(x), jnp.asarray(w), site=site))
+        assert np.array_equal(a.numpy().view(np.int32), b.numpy().view(np.int32))
+        assert np.array_equal(a.numpy().view(np.int32), j.view(np.int32))
+    with pytest.raises(NotImplementedError, match="ft_plan"):
+        TF.build_ftcontext(none.state, none.hyca, fused_block=(8, 128, 128))
+    with pytest.raises(NotImplementedError, match="ft_plan"):
+        TF.build_ftcontext(none.state, none.hyca, fused_block="auto", autotune_shapes=[(4, 128, 128)])
+
+
 def test_int_dtype_fused_falls_back_and_is_recorded():
     """Integer operands take the engine's exact int32 path under fused
     dispatch (the kernel accumulates f32) and the fallback is recorded."""

@@ -46,6 +46,10 @@ def test_port_imports_with_jax_and_reference_package_blocked():
         "import repro_torch.launch.train, repro_torch.checkpoint.store, repro_torch.optim.compression\n"
         "import repro_torch.data.pipeline, repro_torch.transient.memory, repro_torch.repair.retrain\n"
         "import repro_torch.tree, repro_torch.models.lm\n"
+        "import repro_torch.core.campaign, repro_torch.core.reliability, repro_torch.core.perf_model\n"
+        "import repro_torch.core.area, repro_torch.core.fault_models, repro_torch.configs.hyca_dla\n"
+        "import repro_torch.bench.run\n"
+        "repro_torch.bench.run.modules()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )
