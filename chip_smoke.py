@@ -192,7 +192,28 @@ Phases, each printed on its own line; any failure exits non-zero:
      hyca_matmul_batched on the card equal to the per-config hyca_matmul and
      to the same batched call on the CPU, bit for bit, protected and
      unprotected; seconds per PER point and the twin's peak device memory
-     above what was allocated before it.
+     above what was allocated before it.  repair_recovery — the twin in
+     full mode (7 PERs, 48 configs, 60 retrain steps of finetune_vmapped):
+     its seven claims, seconds per PER point, peak device memory.
+  14. the fleet, after the paper's evaluation.  fleet — run_fleet of 4
+     replicas of qwen1.5-0.5b at full width (4 slots, the 8x8 array, DPPU
+     4, fused, every replica's step captured), 2 pooled spares, 120 steps
+     of trace-driven traffic and a chaos burst on replica 0 at step 24 that
+     retires it: a spare captures its own step, and the retired server is
+     gone by the spare's first step; ft_matmul 169 and probe_check_pair 1
+     a replica step (the counts set to 0 just before the run, read just
+     after); the report equals run_fleet's at smoke size on the CPU on
+     every key and run_vfleet's on the card on the 13 parity keys; the
+     fleet step ms, tokens/s, each capture's seconds and the allocated
+     bytes before the chaos, at the spare's first step, after the
+     replacement and after the fleet is freed.  vfleet — the fleet_goodput
+     twin on the card: the quick sweep (its baseline row equal to
+     experiments/bench/fleet_goodput.json's on every count), its claims, one
+     build per geometry; the two pinned parity fleets on the card equal to
+     run_fleet on the CPU; the headline of 1000 replicas x 10 000 steps (x
+     2000, printed as reduced, if its first chunk's time says it would not
+     fit HEADLINE_AIM_S); ms a tick at 64 and 1000 replicas.  obs_overhead —
+     the twin's vfleet row: series off and on, bit-exact, overhead_x.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -2807,10 +2828,242 @@ def paper_phases(dev, smi) -> None:
         k.launches = 0
     campaign_phase(dev, smi)
     accuracy_campaign_phase(dev, smi)
+    repair_recovery_phase(dev, smi)
     launched = {name: k.launches for name, k in kernels.items()}
     check(not any(launched.values()), f"the campaign phases launched csrc kernels: {launched}")
     for name, k in kernels.items():
         k.launches = before[name]
+
+
+# --------------------------------------------------------------------------- #
+# the fleet: full-width replicas, the vectorized engine, the campaign retrain
+# --------------------------------------------------------------------------- #
+FLEET_PARITY_KEYS = (
+    "goodput_tokens", "requests_completed", "requests_expired",
+    "requests_lost", "requests_unrouted", "retirements", "replacements",
+    "spares_remaining", "chaos_injected", "alive_final",
+    "slo_requests", "slo_met", "slo_misses",
+)
+FLEET_BASELINE = dict(goodput_tokens=98047, requests_completed=11556, latency_e2e_p50=14.0, latency_e2e_p99=24.0)
+HEADLINE_AIM_S = 60.0
+
+
+def fleet_cfg(device: str, dispatch: str = "fused"):
+    """4 replicas of qwen's server (4 slots, the 8x8 array, DPPU 4), 2 pooled
+    spares, 120 steps; a chaos burst on replica 0 at step 24 (seed 6: the
+    one of seeds 1-7 at per 0.15 whose burst retires the replica)."""
+    from repro_torch.serving import ChaosSpec, FleetConfig, ServerConfig, TrafficSpec
+
+    return FleetConfig(
+        n_replicas=4, n_spares=2, steps=120, seed=0,
+        chaos=ChaosSpec(per=0.15, at_step=24, seed=6, replicas=(0,)),
+        traffic=TrafficSpec(request_rate=0.3, sla_steps=64, seed=2, n_classes=2, tail=0.4),
+        server=ServerConfig(n_slots=4, smax=64, mode="protected", dispatch=dispatch, scan_block=2,
+                            rows=ROWS, cols=COLS, dppu_size=4, device=device),
+    )
+
+
+def fleet_phase(dev, smi) -> dict[str, int]:
+    """run_fleet at qwen1.5-0.5b's full width on the card, every replica's
+    step captured and fused, a spare capturing after the chaos retirement;
+    held to run_vfleet on the card and to run_fleet at smoke size on the
+    CPU.  Returns the launches of the run (the counts set to 0 just before
+    it, read just after)."""
+    import weakref
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving import fleet as fl
+    from repro_torch.serving import run_fleet, run_vfleet
+    from repro_torch.serving.server import FaultTolerantServer
+
+    cfg = fleet_cfg(str(dev))
+    made, log = [], []   # weak refs to every server; (fleet step, seconds) of every replica step
+    first = {}           # the first step of each server: capture s, captures, allocated bytes after it
+    fresh = fl._fresh_server
+
+    def spy(bundle, fcfg, seed):
+        srv = fresh(bundle, fcfg, seed)
+        ref = weakref.ref(srv)
+        made.append(ref)
+
+        def step():
+            s = ref()
+            if not s.decode.captures and len(made) > fcfg.n_replicas:
+                # a spare's first step: the server it replaces must be gone
+                gc.collect()
+                first["alive_before_spare"] = sum(r() is not None for r in made)
+                first["allocated_before_spare"] = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            out = FaultTolerantServer.step(s)  # ends in the step's host sync
+            log.append((s.step_idx - 1, time.perf_counter() - t0))
+            if s.decode.captures == 1 and id(s) not in first:
+                first[id(s)] = dict(capture_s=s.decode.capture_s, pool_bytes=s.decode.pool_bytes,
+                                    allocated=torch.cuda.memory_allocated(dev), at_step=s.step_idx - 1)
+            if s.step_idx - 1 == fcfg.chaos.at_step - 1 and "allocated_before_chaos" not in first:
+                first["allocated_before_chaos"] = torch.cuda.memory_allocated(dev)
+            return out
+
+        srv.step = step
+        return srv
+
+    kernels = _kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated_start = torch.cuda.memory_allocated(dev)
+    fl._fresh_server = spy
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        card = run_fleet(cfg, lm=get_config(QWEN))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in kernels.items()}
+    finally:
+        fl._fresh_server = fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated_freed = torch.cuda.memory_allocated(dev)
+    servers = [v for k, v in first.items() if isinstance(k, int)]
+    replica_steps = len(log)
+    check(len(made) == cfg.n_replicas + card["replacements"] and card["replacements"] >= 1,
+          f"fleet: {len(made)} servers for {card['replacements']} replacements")
+    check(len(servers) == len(made) and all(v["capture_s"] is not None for v in servers),
+          f"fleet: {len(servers)} of {len(made)} servers captured their step")
+    check(first.get("alive_before_spare") == cfg.n_replicas,
+          f"fleet: {first.get('alive_before_spare')} servers alive at the spare's first step, want {cfg.n_replicas} "
+          f"(the retired server, its graph and cache must be released)")
+    check(all(r() is None for r in made), "fleet: a server outlived run_fleet")
+    check(counts["ft_matmul"] == per_step(QWEN)["ft_matmul"] * replica_steps
+          and counts["probe_check_pair"] == replica_steps and not counts["ft_matmul_batched"],
+          f"fleet: launches {counts} over {replica_steps} replica steps")
+    vec = run_vfleet(cfg)
+    cpu = run_fleet(fleet_cfg("cpu"))
+    for name, other in (("run_vfleet on the card", vec), ("run_fleet at smoke size on the CPU", cpu)):
+        diffs = {k: (card[k], other[k]) for k in FLEET_PARITY_KEYS if card[k] != other[k]}
+        check(not diffs, f"fleet at full width vs {name}: {diffs}")
+    diffs = {k: (card[k], cpu[k]) for k in card if card[k] != cpu[k]}
+    check(not diffs, f"fleet at full width vs smoke size on the CPU: {diffs}")
+    # the chaos-hit replica retires, and its server's detections leave with
+    # it (the report reads the current servers' logs, as the reference's)
+    check(card["retirements"] >= 1 and card["chaos_injected"] > 0,
+          f"fleet: {card['chaos_injected']} chaos faults, {card['retirements']} retirements")
+    by_step: dict[int, float] = {}
+    for st, sec in log:
+        by_step[st] = by_step.get(st, 0.0) + sec
+    steps_s = [by_step[k] for k in sorted(by_step)]
+    spare = servers[cfg.n_replicas:]
+    out = dict(arch=QWEN, replicas=cfg.n_replicas, spares=cfg.n_spares, steps=cfg.steps, dispatch="fused",
+               replica_steps=replica_steps, launches=counts, launches_per_replica_step=per_step(QWEN)["ft_matmul"],
+               fleet_step_ms_median=1e3 * float(np.median(steps_s[2:])),
+               fleet_tokens_per_s=card["goodput_tokens"] / sum(steps_s), wall_s=wall,
+               captures=len(servers), capture_s=[v["capture_s"] for v in servers],
+               spare_capture_s=[v["capture_s"] for v in spare], spare_first_step=[v["at_step"] for v in spare],
+               pool_bytes=[v["pool_bytes"] for v in servers],
+               allocated_start=allocated_start, allocated_before_chaos=first.get("allocated_before_chaos"),
+               allocated_before_spare=first.get("allocated_before_spare"),
+               allocated_after_replacement=spare[0]["allocated"] if spare else None,
+               allocated_after_fleet_freed=allocated_freed,
+               **{k: card[k] for k in FLEET_PARITY_KEYS},
+               detect_latency_p50_steps=card["detect_latency_p50_steps"],
+               suspect_latency_p50_steps=card["suspect_latency_p50_steps"], detections=card["detections"],
+               equal_to=["run_vfleet on the card (13 keys)", "run_fleet at smoke size on the CPU (every key)"],
+               card=smi)
+    phase("fleet", **out)
+    return counts
+
+
+def vfleet_phase(dev, smi) -> dict:
+    """The fleet_goodput twin on the card: the quick sweep (its baseline row
+    equal to the reference's result file on every count), the pinned
+    parity configs against run_fleet on the CPU, and the headline at 1000
+    replicas, at 10 000 steps if its first chunk shows it fits the aim."""
+    import dataclasses as dc
+
+    from repro_torch.bench import fleet_goodput as fg
+    from repro_torch.serving import ChaosSpec, FleetConfig, ServerConfig, TrafficSpec, run_fleet, run_vfleet
+    from repro_torch.serving import vfleet as vf
+
+    builds0 = len(vf._TRACES)
+    # the headline's first chunk alone, to size the headline
+    probe = dc.replace(fg._sweep_cfg(1000, 10_000, "pool", chaos=True, device=str(dev)), steps=250)
+    run_vfleet(probe)                       # its build and capture
+    first_chunk_s = run_vfleet(probe)["sim_wall_s"]
+    estimate = first_chunk_s * 10_000 / 250
+    headline_steps = 10_000 if estimate <= HEADLINE_AIM_S else 2000
+    res = fg.run(False, device=str(dev), headline_steps=headline_steps)
+    check(res["all_ok"], f"fleet_goodput twin claims: {[c for c in res['claims'] if not c['ok']]}")
+    base = next(r for r in res["results"] if r["fleet"] == "baseline")
+    diffs = {k: (base[k], v) for k, v in FLEET_BASELINE.items() if base[k] != v}
+    check(not diffs, f"fleet_goodput baseline row vs experiments/bench/fleet_goodput.json: {diffs}")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "bench", "fleet_goodput.json")) as f:
+        ref_base = next(r for r in json.load(f)["results"] if r["fleet"] == "baseline")
+    counts = [k for k in ref_base if k not in ("sim_wall_s",)]
+    diffs = {k: (base[k], ref_base[k]) for k in counts if base[k] != ref_base[k]}
+    check(not diffs, f"fleet_goodput baseline row vs the reference's: {diffs}")
+    # the pinned parity configs: the card's vectorized engine, the CPU's servers
+    srv = ServerConfig(n_slots=2, smax=32, mode="protected", scan_block=2, rows=4, cols=4, dppu_size=2)
+    pins = {
+        "pool": FleetConfig(n_replicas=3, n_spares=2, spare_policy="pool", n_regions=1, steps=48, seed=0,
+                            chaos=ChaosSpec(per=0.3, at_step=10, seed=3),
+                            traffic=TrafficSpec(request_rate=0.8, sla_steps=12, seed=5), server=srv),
+        "region": FleetConfig(n_replicas=4, n_spares=2, spare_policy="region", n_regions=2, steps=40, seed=7,
+                              chaos=ChaosSpec(per=0.5, at_step=6, seed=11),
+                              traffic=TrafficSpec(request_rate=1.2, sla_steps=14, seed=9, n_classes=2, tail=0.6),
+                              server=srv),
+    }
+    for name, pin in pins.items():
+        on_card = run_vfleet(dc.replace(pin, server=dc.replace(srv, device=str(dev))))
+        on_cpu = run_fleet(dc.replace(pin, server=dc.replace(srv, device="cpu")))
+        diffs = {k: (on_card[k], on_cpu[k]) for k in FLEET_PARITY_KEYS if on_card[k] != on_cpu[k]}
+        check(not diffs, f"vfleet {name} on the card vs run_fleet on the CPU: {diffs}")
+    # ms a tick of a built geometry: chaos-pool reuses the baseline's build,
+    # and the headline's first chunk was timed on its second run
+    chaos_pool = next(r for r in res["results"] if r["fleet"] == "chaos-pool")
+    tick_ms = {"64": 1e3 * chaos_pool["sim_wall_s"] / chaos_pool["steps"], "1000": 1e3 * first_chunk_s / 250}
+    out = dict(rows={r["fleet"]: {k: r[k] for k in ("n_replicas", "steps", "goodput_tokens", "requests_completed",
+                                                   "requests_expired", "retirements", "replacements",
+                                                   "slo_attainment", "latency_e2e_p50", "latency_e2e_p99",
+                                                   "sim_wall_s")} for r in res["results"]},
+               headline_steps=headline_steps, headline_reduced=headline_steps != 10_000,
+               headline_first_chunk_s=first_chunk_s, headline_estimate_s=estimate,
+               baseline_equals_reference=True, parity_pins=sorted(pins), ms_per_tick=tick_ms,
+               builds=len(vf._TRACES) - builds0, claims=[c["claim"] for c in res["claims"]], card=smi)
+    phase("vfleet", **out)
+    return out
+
+
+def repair_recovery_phase(dev, smi) -> dict:
+    """The repair_recovery twin in full mode on the card: 7 PERs, 48
+    configs, 60 retrain steps, the seven claims."""
+    from repro_torch.bench import repair_recovery as rr
+
+    t0 = time.perf_counter()
+    res = rr.run(False, device=str(dev))
+    seconds = time.perf_counter() - t0
+    check(res["all_ok"] and len(res["claims"]) == 7,
+          f"repair_recovery twin claims: {[c for c in res['claims'] if not c['ok']]}")
+    check(len(res["pers"]) == 7 and res["n_configs"] == 48 and res["retrain_steps"] == 60,
+          f"repair_recovery at {len(res['pers'])} PERs, {res['n_configs']} configs, {res['retrain_steps']} steps")
+    out = dict(pers=res["pers"], n_configs=res["n_configs"], retrain_steps=res["retrain_steps"],
+               clean_acc=res["clean_acc"],
+               mean={k: {str(p): v["mean"] for p, v in c.items()} for k, c in res["curves"].items()},
+               seconds_per_point=res["seconds_per_point"], peak_bytes=res["peak_bytes"], seconds=seconds,
+               claims=[c["claim"] for c in res["claims"]], card=smi)
+    phase("repair_recovery", **out)
+    return out
+
+
+def obs_overhead_phase(dev, smi) -> dict:
+    """The obs_overhead twin's vfleet row on the card: series off and on,
+    the traced report bit-exact with the bare one."""
+    from repro_torch.bench import obs_overhead as ob
+
+    res = ob.run(True, device=str(dev), paths=("vfleet",))
+    check(res["all_ok"], f"obs_overhead twin claims: {[c for c in res['claims'] if not c['ok']]}")
+    out = dict(**res["results"][0], repeats=res["repeats"], claims=[c["claim"] for c in res["claims"]], card=smi)
+    phase("obs_overhead", **out)
+    return out
 
 
 def main() -> None:
@@ -2856,6 +3109,10 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
     paper_phases(dev, smi)
+    for name, n in fleet_phase(dev, smi).items():  # the fleet's replicas: every replayed step's launches
+        launches[name] += n
+    vfleet_phase(dev, smi)
+    obs_overhead_phase(dev, smi)
 
     def matmul_row(name: str, replaces: str) -> dict:
         paths = {arch: t[name] for arch, t in per_path.items() if name in t}

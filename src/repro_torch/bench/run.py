@@ -1,5 +1,6 @@
-"""Runs the twins: one module per paper table/figure plus the campaign's
-statistical acceptance run.
+"""Runs the twins: one module per paper table/figure, the campaign's
+statistical acceptance run, and the beyond-paper twins (repair recovery,
+fleet goodput, cluster FFP, the telemetry tax).
 
     PYTHONPATH=src python -m repro_torch.bench.run [--quick] [--only NAME] [--device cpu|cuda]
 
@@ -18,6 +19,7 @@ from repro_torch.bench.common import run_module
 def modules() -> dict:
     from repro_torch.bench import (
         campaign,
+        cluster_ffp,
         fig02_accuracy_vs_per,
         fig03_motivation_ffp,
         fig09_area,
@@ -27,6 +29,9 @@ def modules() -> dict:
         fig13_runtime_vs_size,
         fig14_scalability,
         fig15_dppu_grouping,
+        fleet_goodput,
+        obs_overhead,
+        repair_recovery,
         tab01_detection,
     )
 
@@ -42,6 +47,10 @@ def modules() -> dict:
         "fig14_scalability": fig14_scalability.run,
         "fig15_dppu_grouping": fig15_dppu_grouping.run,
         "tab01_detection": tab01_detection.run,
+        "repair_recovery": repair_recovery.run,
+        "fleet_goodput": fleet_goodput.run,
+        "cluster_ffp": cluster_ffp.run,
+        "obs_overhead": obs_overhead.run,
     }
 
 

@@ -56,6 +56,7 @@ from repro_torch.core.engine import FaultState, RepairPlan, empty_fault_state, i
 from repro_torch.core.reliability import point_seed  # shared seed derivation (re-export)
 
 __all__ = [
+    "ChaosSpec",
     "CampaignSpec",
     "CampaignPoint",
     "CampaignResult",
@@ -63,6 +64,9 @@ __all__ = [
     "batched_fault_states",
     "batched_repair_plans",
     "batched_single_fault_states",
+    "apply_chaos",
+    "chaos_maps",
+    "chaos_signatures",
     "identity_plans",
     "binomial_halfwidth",
     "device_clustered_maps",
@@ -696,3 +700,59 @@ def identity_plans(n: int, rows: int, cols: int, *, device="cuda") -> RepairPlan
     baseline through the same batched call as the remap runs."""
     one = identity_plan(rows, cols, device=resolve_device(device))
     return RepairPlan(one.col_map.expand(n, cols).contiguous(), one.prune.expand(n, rows, cols).contiguous())
+
+
+# --------------------------------------------------------------------------- #
+# chaos hook: campaign-sampled fault maps into running servers
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class ChaosSpec:
+    """Inject campaign-sampled fault maps into live serving replicas at a
+    chosen step, the fleet's counterpart of a Monte-Carlo fault
+    configuration.  The runtime is not told: the ScanEngine probes must find
+    the faults, which is what the chaos experiment measures."""
+
+    per: float = 0.02
+    fault_model: str = "random"   # random | clustered
+    at_step: int = 0
+    replicas: tuple[int, ...] | None = None  # None = every live replica
+    seed: int = 0
+
+    def targets(self, n_replicas: int) -> tuple[int, ...]:
+        if self.replicas is None:
+            return tuple(range(n_replicas))
+        return tuple(i for i in self.replicas if 0 <= i < n_replicas)
+
+
+def chaos_maps(spec: ChaosSpec, n: int, rows: int, cols: int) -> np.ndarray:
+    """(n, rows, cols) campaign-distribution fault maps for chaos injection
+    (host numpy, the reference's calls: the same spec gives the same maps)."""
+    rng = np.random.default_rng(spec.seed)
+    return fm.sample_fault_maps(rng, n, rows, cols, spec.per, spec.fault_model)  # type: ignore[arg-type]
+
+
+def chaos_signatures(spec: ChaosSpec, n: int, rows: int, cols: int) -> tuple[np.ndarray, np.ndarray]:
+    """(n, rows, cols) stuck-bit / stuck-val grids for chaos injection, drawn
+    from the spec's seed rather than each injector's own RNG, so both fleet
+    engines inject the same signatures for the same spec (probe
+    detectability depends on the stuck bit)."""
+    rng = np.random.default_rng([spec.seed, 0xC11A05])
+    bits = rng.integers(0, 32, size=(n, rows, cols), dtype=np.int32)
+    vals = rng.integers(0, 2, size=(n, rows, cols), dtype=np.int32)
+    return bits, vals
+
+
+def apply_chaos(injector, fault_map: np.ndarray, *, bits: np.ndarray | None = None,
+                vals: np.ndarray | None = None) -> int:
+    """Merge a sampled map into a FaultInjector's ground truth; returns the
+    number of new faults (PEs already faulty are unchanged).  With ``bits``
+    and ``vals`` (one :func:`chaos_signatures` slice) the stuck-at
+    signatures come from those grids instead of the injector's RNG."""
+    before = injector.n_faults
+    m = np.asarray(fault_map, bool)
+    if bits is None or vals is None:
+        injector.inject_map(m)
+    else:
+        for r, c in np.argwhere(m):
+            injector.inject_at(int(r), int(c), bit=int(bits[r, c]), val=int(vals[r, c]))
+    return injector.n_faults - before

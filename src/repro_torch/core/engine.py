@@ -447,30 +447,43 @@ def hyca_matmul_batched(
     plans: RepairPlan | None = None,
     n_repair: int | None = None,
     x_axis: int | None = 0,
+    w_axis: int | None = None,
 ) -> torch.Tensor:
     """:func:`hyca_matmul` over a batch of fault configs, the counterpart of
     ``jax.vmap(hyca_matmul)``: ``states`` (and ``plans``, if given) carry a
     leading config axis.  ``x_axis=None`` shares one x, (..., K), across
     every config (``in_axes=None``); ``x_axis=0`` reads x's leading axis as
-    the config axis.  Config ``i`` of the (n, ..., N) result is
-    ``hyca_matmul(x_i, w, take_config(states, i), cfg=cfg, plan=plan_i)``:
+    the config axis.  ``w_axis`` likewise: ``None`` shares one (K, N) w,
+    ``0`` reads an (n, K, N) w as one w a config (a batched matmul), as
+    when each config fine-tunes its own weights.  Config ``i`` of the (n,
+    ..., N) result is ``hyca_matmul(x_i, w_i, take_config(states, i),
+    cfg=cfg, plan=plan_i)``:
     bit for bit for integer operands, whose exact route never holds the
     (..., M, K, N) product; a float product may round as a batched matmul
     does.  The tables are validated once for the batch, and each grid comes
     from one scatter for all configs."""
-    if x_axis not in (None, 0):
-        raise ValueError(f"x_axis must be None or 0, got {x_axis!r}")
+    if x_axis not in (None, 0) or w_axis not in (None, 0):
+        raise ValueError(f"x_axis and w_axis must be None or 0, got {x_axis!r}, {w_axis!r}")
     n = states.fpt.shape[0]
     validate_fault_states(states, cfg.rows, cfg.cols)
     if plans is not None:
         validate_repair_plans(plans, cfg.rows, cfg.cols)
     if x_axis == 0 and x.shape[0] != n:
         raise ValueError(f"x carries {x.shape[0]} configs, the fault states {n}")
+    if w_axis == 0:
+        if w.ndim != 3 or w.shape[0] != n:
+            raise ValueError(f"w_axis=0 needs an ({n}, K, N) w, got shape {tuple(w.shape)}")
+        if x_axis is None:
+            x = x.reshape(1, *x.shape)
+        # one w a config: align its config axis with x's
+        w = w.reshape(n, *([1] * (x.ndim - 3)), *w.shape[1:])
     if x.dtype.is_floating_point:
         out = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    elif w_axis == 0 and not (x.dtype in _SMALL_INTS and w.dtype in _SMALL_INTS):
+        out = torch.stack([_int_matmul(x[min(i, x.shape[0] - 1)], w[i]) for i in range(n)])
     else:
         out = _int_matmul_batched(x, w)
-    if x_axis is None:
+    if x_axis is None and w_axis is None:
         out = out.expand(n, *out.shape)
     if cfg.mode == "off":
         return out.contiguous()

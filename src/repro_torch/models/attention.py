@@ -104,6 +104,20 @@ def gqa_forward(x, p, cfg: AttnConfig, positions=None, ftc=None) -> torch.Tensor
     return site_matmul(ftc, "attn.out")(out.reshape(b, s, cfg.n_heads * cfg.hd), p["wo"])
 
 
+def _write_rows(bidx: torch.Tensor, idx: torch.Tensor, *pairs: tuple[torch.Tensor, torch.Tensor]) -> None:
+    """``cache[b, idx[b]] = new[b]`` in place, for each ``(cache, new)`` of
+    ``pairs``, for every slot whose ``idx`` is inside the cache; a slot at or
+    past its capacity (an idle slot keeps advancing) keeps its cache as it
+    was, as the reference's scatter drops an out-of-bounds write, and no
+    index leaves the tensor."""
+    smax = pairs[0][0].shape[1]
+    pos = torch.clamp(idx, max=smax - 1).long()
+    keep = idx < smax
+    for cache, new in pairs:
+        k = keep.view(-1, *([1] * (new.dim() - 1)))
+        cache[bidx, pos] = torch.where(k, new.to(cache.dtype), cache[bidx, pos])
+
+
 def gqa_decode(x, p, cfg: AttnConfig, cache: Params, ftc=None) -> tuple[torch.Tensor, Params]:
     """One-token decode.  x: (B,1,d); cache: {k, v: (B,Smax,Hk,D), idx: (B,)}.
 
@@ -117,8 +131,7 @@ def gqa_decode(x, p, cfg: AttnConfig, cache: Params, ftc=None) -> tuple[torch.Te
     q, k_new, v_new = _qkv(x, p, cfg, idx[:, None], ftc)
     bidx = torch.arange(b, device=x.device)
     k_cache, v_cache = cache["k"], cache["v"]
-    k_cache[bidx, idx.long()] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[bidx, idx.long()] = v_new[:, 0].to(v_cache.dtype)
+    _write_rows(bidx, idx, (k_cache, k_new[:, 0]), (v_cache, v_new[:, 0]))
     smax = k_cache.shape[1]
     g = cfg.n_heads // cfg.n_kv
     scale = 1.0 / (cfg.hd ** 0.5)
@@ -242,8 +255,7 @@ def mla_decode(x, p, cfg: MLAConfig, cache: Params, ftc=None) -> tuple[torch.Ten
     q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkr(x, p, cfg, idx[:, None], ftc)
     bidx = torch.arange(b, device=x.device)
     c_cache, r_cache = cache["c_kv"], cache["k_rope"]
-    c_cache[bidx, idx.long()] = c_kv_new[:, 0].to(c_cache.dtype)
-    r_cache[bidx, idx.long()] = k_rope_new[:, 0].to(r_cache.dtype)
+    _write_rows(bidx, idx, (c_cache, c_kv_new[:, 0]), (r_cache, k_rope_new[:, 0]))
     wkv_b = p["wkv_b"].reshape(cfg.kv_lora, h, dn + dv)
     w_uk, w_uv = wkv_b[..., :dn].to(torch.float32), wkv_b[..., dn:].to(torch.float32)  # (L,H,dn), (L,H,dv)
     q_abs = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].to(torch.float32), w_uk)

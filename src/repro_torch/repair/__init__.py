@@ -13,7 +13,8 @@ in the model instead:
     channels mapped onto unrepaired PEs in place.
 
   * :mod:`repro_torch.repair.retrain` — the budgeted fine-tune with the
-    faulty array and the plan in the forward pass.
+    faulty array and the plan in the forward pass, and its campaign-scale
+    form over every sampled fault configuration (``finetune_vmapped``).
 
     sal = weight_salience(params, hyca.cols)
     plan = remap_plan(confirmed_state, hyca, sal)
@@ -31,7 +32,7 @@ from repro_torch.repair.prune import (  # noqa: F401
     pruned_fraction,
     pruned_pe_fraction,
 )
-from repro_torch.repair.retrain import RetrainConfig, grad_mask, retrain  # noqa: F401
+from repro_torch.repair.retrain import RetrainConfig, finetune_vmapped, grad_mask, retrain  # noqa: F401
 from repro_torch.repair.remap import (  # noqa: F401
     SalienceProbe,
     fold_channel_salience,

@@ -7,25 +7,30 @@ faulty array in the forward pass, so the surviving channels learn to cover
 for the zeroed ones.  The budget is small: a handful of steps, only the
 affected parameter groups unfrozen.
 
-:func:`retrain` runs :func:`repro_torch.launch.train.make_train_step` with
-the faulty FTContext and the plan active and a gradient mask that freezes
-everything outside the trainable set; it returns repaired params to swap
-into a running :class:`~repro_torch.serving.server.FaultTolerantServer`.
-The reference's campaign-scale ``finetune_vmapped`` (one program over every
-sampled fault configuration) waits for the batched fault states and plans
-of ``core/campaign.py`` (ROADMAP A7).
+Two entry points:
+
+  * :func:`retrain` runs :func:`repro_torch.launch.train.make_train_step`
+    with the faulty FTContext and the plan active and a gradient mask that
+    freezes everything outside the trainable set; it returns repaired params
+    to swap into a running
+    :class:`~repro_torch.serving.server.FaultTolerantServer`.
+  * :func:`finetune_vmapped` is the campaign-scale path: a small model
+    fine-tuned under every sampled fault configuration at once, batched over
+    the configs (the batched FaultStates and RepairPlans of
+    :mod:`repro_torch.core.campaign`); it makes the retrain curve of
+    ``bench/repair_recovery.py``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
 from repro_torch.core.engine import FaultState, HyCAConfig, RepairPlan
-from repro_torch.tree import map_with_path, tree_leaves
+from repro_torch.tree import map_with_path, tree_leaves, tree_map
 
-__all__ = ["RetrainConfig", "grad_mask", "retrain"]
+__all__ = ["RetrainConfig", "grad_mask", "retrain", "finetune_vmapped"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,3 +118,41 @@ def retrain(
         "trainable": list(rc.trainable),
     }
     return train_state["params"], report
+
+
+def finetune_vmapped(
+    loss_fn: Callable[[Any, FaultState, RepairPlan], torch.Tensor],
+    params: Any,
+    states: FaultState,
+    plans: RepairPlan,
+    *,
+    steps: int,
+    lr: float,
+) -> Any:
+    """SGD fine-tune under every fault configuration at once.
+
+    ``states``/``plans`` carry a leading config axis of n configs
+    (:func:`repro_torch.core.campaign.batched_fault_states` /
+    :func:`repro_torch.core.campaign.batched_repair_plans`).  ``params``
+    (one model) is copied to every config; returns params whose leaves carry
+    that leading axis, one adapted model per fault configuration.
+
+    The contract differs from the reference's, whose ``loss_fn(params,
+    state, plan)`` is one config's scalar loss, ``vmap``-ed over the configs:
+    here ``loss_fn(params_b, states, plans)`` takes the batched params (each
+    leaf (n, ...)) with the batched tables and returns the (n,) per-config
+    losses, routing its forward through the faulty array batched (e.g.
+    :func:`~repro_torch.core.engine.hyca_matmul_batched` with ``w_axis=0``).
+    Config i's loss reads only config i's params, so the gradient of the
+    summed losses is each config's own gradient, and each step is
+    ``p - lr * grad`` per config, as the reference's per-config scan."""
+    n = states.fpt.shape[0]
+    p = tree_map(lambda a: a.detach().expand(n, *a.shape).clone(), params)
+    for _ in range(steps):
+        leaves = [a.requires_grad_() for a in tree_leaves(p)]
+        losses = loss_fn(p, states, plans)
+        if tuple(losses.shape) != (n,):
+            raise ValueError(f"loss_fn must return the ({n},) per-config losses, got shape {tuple(losses.shape)}")
+        grads = dict(zip(map(id, leaves), torch.autograd.grad(losses.sum(), leaves)))
+        p = tree_map(lambda a: (a - lr * grads[id(a)]).to(a.dtype).detach(), p)
+    return p

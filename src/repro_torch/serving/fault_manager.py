@@ -91,6 +91,12 @@ class FaultInjector:
         for r, c in free[np.atleast_1d(pick)]:
             self.inject_at(int(r), int(c))
 
+    def inject_map(self, fault_map: np.ndarray) -> None:
+        """Every PE of ``fault_map`` (row-major order), each through
+        :meth:`inject_at`, so the RNG is consumed as the reference's is."""
+        for r, c in np.argwhere(fault_map):
+            self.inject_at(int(r), int(c))
+
     def step(self, rate: float) -> int:
         """Accumulate Poisson(rate) new faults (one serving step's wearout)."""
         n = int(self.rng.poisson(rate)) if rate > 0 else 0

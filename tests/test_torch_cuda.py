@@ -641,3 +641,91 @@ def test_hyca_matmul_batched_and_device_samplers_on_the_card():
     m = cp.device_clustered_maps(5, 300, 16, 16, 0.05)
     g = torch.Generator(device="cuda").manual_seed(5)
     assert torch.equal(m.reshape(300, -1).sum(1), (torch.rand((300, 256), generator=g, device="cuda") < 0.05).sum(1))
+
+
+def _fleet_cfg(device: str, dispatch: str = "fused", **kw):
+    from repro_torch.serving import ChaosSpec, FleetConfig, ServerConfig, TrafficSpec
+
+    return FleetConfig(
+        n_replicas=3, n_spares=2, spare_policy="pool", n_regions=1, steps=48, seed=0,
+        chaos=ChaosSpec(per=0.3, at_step=10, seed=3),
+        traffic=TrafficSpec(request_rate=0.8, sla_steps=12, seed=5),
+        server=ServerConfig(n_slots=2, smax=32, mode="protected", scan_block=2, rows=4, cols=4, dppu_size=2,
+                            dispatch=dispatch, device=device),
+        **kw,
+    )
+
+
+@pytest.mark.cuda
+def test_run_fleet_fused_captured_on_the_card_equals_the_cpu():
+    """``run_fleet`` of smoke-size qwen servers under ``dispatch="fused"`` on
+    the card (every server's step captured, the spares' too) gives the CPU
+    run's report key for key; every replica step launches the step's
+    ft_matmul calls and one probe_check_pair."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.serving import run_fleet
+
+    pair = TDR.probe_check_pair
+    n_mm, n_pair = TFM.ft_matmul.launches, pair.launches
+    card = run_fleet(_fleet_cfg("cuda"))
+    n_mm, n_pair = TFM.ft_matmul.launches - n_mm, pair.launches - n_pair
+    cpu = run_fleet(_fleet_cfg("cpu"))
+    assert {k: card[k] for k in card} == {k: cpu[k] for k in card}
+    assert card["replacements"] >= 1
+    replica_steps = sum(r["scan_steps"] for r in card["replica_summaries"])
+    assert n_pair >= replica_steps > 0 and n_mm > 0 and n_mm % n_pair == 0
+
+
+@pytest.mark.cuda
+def test_run_vfleet_on_the_card_captured_equals_eager_and_the_cpu():
+    """``run_vfleet`` on the card: the captured tick equals the eager tick on
+    every key (wearout included: both draw from the same generator), the
+    card equals the CPU at fault rate 0, and one build serves a rate sweep."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch.serving import run_vfleet
+    from repro_torch.serving import vfleet as vf
+
+    for rate in (0.0, 0.05):
+        cfg = _fleet_cfg("cuda", fault_rate=rate, chunk_steps=20, series=True)
+        got = run_vfleet(cfg)
+        eager = run_vfleet(cfg, capture=False)
+        for k in got:
+            if k == "series":
+                assert all(np.array_equal(got[k][c], eager[k][c]) for c in got[k])
+            elif k != "sim_wall_s":
+                assert got[k] == eager[k], k
+        if rate == 0:
+            cpu = run_vfleet(dataclasses.replace(cfg, server=dataclasses.replace(cfg.server, device="cpu")))
+            assert {k: got[k] for k in got if k not in ("sim_wall_s", "series")} == \
+                   {k: cpu[k] for k in got if k not in ("sim_wall_s", "series")}
+    n0 = len(vf._TRACES)
+    for rate in (0.01, 0.2):
+        run_vfleet(_fleet_cfg("cuda", fault_rate=rate, chunk_steps=20, series=True))
+    assert len(vf._TRACES) == n0
+
+
+@pytest.mark.cuda
+def test_hyca_matmul_batched_per_config_w_on_the_card():
+    """``hyca_matmul_batched`` with one w a config on the card equals the
+    CPU's, int8 operands, remap plans."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import campaign as cp
+    from repro_torch.core.fault_models import random_fault_maps
+    from repro_torch.core.redundancy import DPPUConfig
+
+    rng = np.random.default_rng(1)
+    maps = random_fault_maps(rng, 8, 16, 16, 0.08)
+    states = {d: cp.batched_fault_states(maps, seed=3, device=d) for d in ("cuda", "cpu")}
+    sal = rng.random(16).astype(np.float32)
+    plans = {d: cp.batched_repair_plans(states[d], sal, rows=16, cols=16, capacity=8, device=d) for d in states}
+    x = torch.from_numpy(rng.integers(-128, 128, (70, 300)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (8, 300, 48)).astype(np.int8))
+    cfg = TE.HyCAConfig(16, 16, DPPUConfig(size=8, group_size=8), "protected")
+    out = {d: TE.hyca_matmul_batched(x.to(d), w.to(d), states[d], cfg=cfg, plans=plans[d], x_axis=None, w_axis=0)
+           for d in states}
+    assert torch.equal(out["cuda"].cpu(), out["cpu"])
