@@ -214,6 +214,27 @@ Phases, each printed on its own line; any failure exits non-zero:
      2000, printed as reduced, if its first chunk's time says it would not
      fit HEADLINE_AIM_S); ms a tick at 64 and 1000 replicas.  obs_overhead —
      the twin's vfleet row: series off and on, bit-exact, overhead_x.
+  15. the launch tier and the serving twins.  launch_steps — on each of
+     qwen1.5-0.5b and granite-moe-3b-a800m at full width before its bundle
+     is freed: launch/serve.py's make_decode (4 slots, fused) bit for bit
+     the bundle's captured step (logits and cache, off and unprotected),
+     one capture and per replayed step exactly the path's launches (169;
+     161 + 96), protected equal to off and unprotected different, a second
+     builder leaving no allocated byte behind; on qwen also make_prefill at
+     4 x 512 bit for bit the prefill_fused phase's logits in its three
+     modes, and the decode step's ms and device busy share.  serve_cli —
+     launch.serve.main on smoke qwen (6 requests) off / protected /
+     unprotected under twopass and fused, remap past capacity, chaos, 64
+     faults (admission refused), and one run with counters, --metrics-out,
+     --series-out, --spans-out and --metrics-port 0 (files under build/,
+     removed after): every summary key but the wall clock's equal to the
+     same argv on the CPU, protected's tokens equal to off's, the launches
+     the ledger's, the /metrics scrape equal to the .prom file.
+     serving_twins — the serving_goodput, scan_latency, detector_coverage
+     and ft_overhead twins (quick; ft_overhead also in full mode on
+     FT_FULL_FAMILIES), written to experiments/bench_torch/: the results
+     that depend on no float order equal to experiments/bench/*.json, the
+     correctness claims held, the timing claims printed.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -233,10 +254,12 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int32: 67e12}
-L2_BYTES = 50 * 2**20
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+from repro_torch.launch import hw  # noqa: E402  (the card's constants: one source for every bound)
+
+HBM_BYTES_PER_S = hw.HBM_BW
+PEAK_OPS_PER_S = {torch.bfloat16: hw.PEAK_FLOPS_BF16, torch.float32: hw.PEAK_FLOPS_F32, torch.int32: hw.PEAK_OPS_INT32}
+L2_BYTES = hw.L2_BYTES
 
 ROWS = COLS = 8
 QWEN, GRANITE = "qwen1.5-0.5b", "granite-moe-3b-a800m"
@@ -376,8 +399,21 @@ def device_phase() -> str:
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    props = torch.cuda.get_device_properties(0)
     phase("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+          sm_count=props.multi_processor_count, total_memory=props.total_memory,
+          l2_bytes=getattr(props, "L2_cache_size", None),
+          smem_per_sm=getattr(props, "shared_memory_per_multiprocessor", None),
+          smem_per_block_optin=getattr(props, "shared_memory_per_block_optin", None),
+          hw=dict(SM_COUNT=hw.SM_COUNT, HBM_BYTES=hw.HBM_BYTES, L2_BYTES=hw.L2_BYTES, SMEM_PER_SM=hw.SMEM_PER_SM,
+                  SMEM_PER_BLOCK=hw.SMEM_PER_BLOCK))
+    # launch/hw.py's SM count is the card's; its HBM size holds the memory
+    # the card reports (a little of the 80 GiB stays reserved)
+    check(props.multi_processor_count == hw.SM_COUNT,
+          f"the card has {props.multi_processor_count} SMs, launch/hw.py says {hw.SM_COUNT}")
+    check(0.95 * hw.HBM_BYTES <= props.total_memory <= hw.HBM_BYTES,
+          f"the card has {props.total_memory} bytes of memory, launch/hw.py says {hw.HBM_BYTES}")
     return smi
 
 
@@ -2338,7 +2374,8 @@ def prefill_phase(dev, smi: str, bundle) -> dict[str, dict]:
     production prefill, in the modes of :func:`prefill_modes`; then the
     kernels at the prefill's shapes, their times against the library call
     and the bound (:func:`time_kernel_shapes`).  Returns {kernel:
-    per-prefill totals, with the launches the protected prefill made}."""
+    per-prefill totals, with the launches the protected prefill made}, and
+    the prefill's batch, contexts and each mode's logits."""
     lm, arch = bundle.lm, bundle.lm.name
     t0 = time.perf_counter()
     batch = prefill_batch(lm, dev, torch.Generator(device=dev).manual_seed(3))
@@ -2361,7 +2398,7 @@ def prefill_phase(dev, smi: str, bundle) -> dict[str, dict]:
           library_ms_per_prefill={k: v["library_ms"] for k, v in totals.items()},
           bound_ms_per_prefill={k: v["bound_ms"] for k, v in totals.items()},
           phase_s=time.perf_counter() - t0, card=smi)
-    return totals
+    return totals, dict(batch=batch, ctxs=r["ctxs"], logits=r["logits"])
 
 
 # --------------------------------------------------------------------------- #
@@ -2846,6 +2883,10 @@ FLEET_PARITY_KEYS = (
 )
 FLEET_BASELINE = dict(goodput_tokens=98047, requests_completed=11556, latency_e2e_p50=14.0, latency_e2e_p99=24.0)
 HEADLINE_AIM_S = 60.0
+# ft_overhead's full mode (48 steps x 8 repeats x 16 slots) on the card, cut
+# to the dense and SSM families: deepseek-moe's eager twopass experts take
+# ~100 s of full mode (106 ms a step), so it runs in quick mode only
+FT_FULL_FAMILIES = ("qwen1.5-0.5b", "rwkv6-7b")
 
 
 def fleet_cfg(device: str, dispatch: str = "fused"):
@@ -3066,9 +3107,452 @@ def obs_overhead_phase(dev, smi) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# the serving CLI, the launch step builders and the serving benchmarks' twins
+# --------------------------------------------------------------------------- #
+CLI_BASE = ["--requests", "6", "--gen", "6", "--prompt-len", "4"]
+# launch.serve.main's runs on the card, each again with --device cpu
+CLI_RUNS = {
+    **{f"{mode}/{d}": ["--mode", mode, *(["--faults", "3"] if mode != "off" else []), "--dispatch", d]
+       for d in ("twopass", "fused") for mode in ("off", "protected", "unprotected")},
+    "remap": ["--mode", "protected", "--faults", "8", "--repair", "remap", "--dispatch", "fused"],
+    "chaos": ["--chaos-per", "0.2", "--chaos-at", "4", "--dispatch", "fused"],
+    "faults64": ["--mode", "protected", "--faults", "64", "--dispatch", "fused"],
+}
+CLI_WALL = ("wall_s", "tokens_per_s")  # the summary's two wall-clock keys
+
+
+def _untimed(summary: dict) -> dict:
+    return {k: v for k, v in summary.items() if k not in CLI_WALL}
+
+
+def _prom_lines(text: str) -> list[str]:
+    """Prometheus text without the wall-clock gauges."""
+    return [ln for ln in text.splitlines() if not any(w in ln for w in CLI_WALL)]
+
+
+def cli_run(argv: list[str]) -> dict:
+    """One ``launch.serve.main(argv)``: its summary, the server it built, its
+    printed lines, its launches (the counts set to 0 just before it, read
+    just after) and, with ``--metrics-port``, one ``/metrics`` scrape taken
+    when the run has ended and before the endpoint stops.  The server and
+    the endpoint are seen through wrappers around ``FaultTolerantServer.run``
+    and ``MetricsServer.__init__``, removed afterwards."""
+    import contextlib
+    import io
+    import urllib.request
+
+    from repro_torch.launch import serve as ls
+    from repro_torch.obs import httpd
+    from repro_torch.serving.server import FaultTolerantServer
+
+    seen: dict = {}
+    real_run, real_init = FaultTolerantServer.run, httpd.MetricsServer.__init__
+
+    def run(self, *a, **kw):
+        out = real_run(self, *a, **kw)
+        seen["server"] = self
+        if "httpd" in seen:
+            with urllib.request.urlopen(f"http://127.0.0.1:{seen['httpd'].port}/metrics", timeout=10) as r:
+                seen["scrape"] = r.read().decode()
+        return out
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        seen["httpd"] = self
+
+    kernels = _kernels()
+    FaultTolerantServer.run, httpd.MetricsServer.__init__ = run, init
+    printed = io.StringIO()
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            summary = ls.main(argv)
+        seconds = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in kernels.items()}
+    finally:
+        FaultTolerantServer.run, httpd.MetricsServer.__init__ = real_run, real_init
+    return dict(summary=summary, server=seen["server"], lines=printed.getvalue().splitlines(), counts=counts,
+                seconds=seconds, scrape=seen.get("scrape"), httpd=seen.get("httpd"))
+
+
+def serve_cli_phase(dev, smi) -> dict[str, int]:
+    """``launch.serve.main`` on smoke qwen on the card, each argv of
+    ``CLI_RUNS`` and one with counters, the three files and the endpoint,
+    each again with ``--device cpu``.  Every summary key but the two
+    wall-clock ones (steps, tokens, requests, scan steps and sweeps,
+    confirmed, surviving columns, effective slots, remapped, detections and
+    their latencies, the counters) depends on no float order, so the card's
+    equals the CPU's; protected (3 faults <= the DPPU's 4) serves off's
+    tokens bit for bit in each dispatch; --faults 64 refuses admission; the
+    fused runs launch ft_matmul the ledger's count a step, the protected
+    runs probe_check_pair once a scan step; the scrape equals the .prom file
+    but for the wall-clock gauges.  Returns the launches of the card's runs."""
+    import shutil
+
+    total = dict.fromkeys(_kernels(), 0)
+    runs, out = {}, {}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "serve_cli")
+    files = {"card": os.path.join(root, "card"), "cpu": os.path.join(root, "cpu")}
+    argvs = dict(CLI_RUNS, obs=["--mode", "protected", "--faults", "3", "--dispatch", "fused", "--counters",
+                                "--metrics-port", "0"])
+    try:
+        for name, argv in argvs.items():
+            got = {}
+            for where, device in (("card", str(dev)), ("cpu", "cpu")):
+                extra = ["--device", device]
+                if name == "obs":
+                    d = files[where]
+                    extra += ["--metrics-out", os.path.join(d, "ev.jsonl"), "--series-out", os.path.join(d, "series"),
+                              "--spans-out", os.path.join(d, "spans.jsonl")]
+                got[where] = cli_run(CLI_BASE + argv + extra)
+            card, cpu = got["card"], got["cpu"]
+            s = card["summary"]
+            diffs = {k: (v, cpu["summary"].get(k)) for k, v in _untimed(s).items() if cpu["summary"].get(k) != v}
+            check(not diffs and _untimed(s).keys() == _untimed(cpu["summary"]).keys(),
+                  f"serve_cli {name}: the card's summary vs the CPU's: {diffs}")
+            check(any(ln.startswith("[serve] arch=") for ln in card["lines"])
+                  and any("effective_slots_final" in ln for ln in card["lines"]), f"serve_cli {name}: printed lines")
+            srv, counts = card["server"], card["counts"]
+            fused = srv.cfg.dispatch == "fused"
+            calls = sum(c.count for c in srv.bundle.ledger if c.protected) if fused else 0
+            check(counts["ft_matmul"] == calls * s["steps"] and counts["ft_matmul_batched"] == 0,
+                  f"serve_cli {name}: ft_matmul launched {counts['ft_matmul']} times in {s['steps']} steps, "
+                  f"want {calls} a step")
+            check(counts["probe_check_pair"] == s["scan_steps"] and counts["probe_check"] == 0,
+                  f"serve_cli {name}: probe_check_pair launched {counts['probe_check_pair']} times in "
+                  f"{s['scan_steps']} scan steps")
+            for k, n in counts.items():
+                total[k] += n
+            runs[name] = card
+            out[name] = dict(steps=s["steps"], tokens=s["tokens"], scan_steps=s["scan_steps"],
+                             confirmed=s["confirmed_faults_final"], surviving_cols=s["surviving_cols_final"],
+                             effective_slots_final=s["effective_slots_final"], remapped=s["remapped_final"],
+                             detections=s["detections"], detect_latency_p50_steps=s["detect_latency_p50_steps"],
+                             launches=counts, seconds=card["seconds"], cpu_seconds=cpu["seconds"],
+                             ms_per_step=1e3 * s["wall_s"] / max(s["steps"], 1))
+        for d in ("twopass", "fused"):
+            off, prot = runs[f"off/{d}"]["server"], runs[f"protected/{d}"]["server"]
+            a, b = off.completions_by_rid(), prot.completions_by_rid()
+            check(len(a) == 6 and a.keys() == b.keys() and all(np.array_equal(a[r], b[r]) for r in a),
+                  f"serve_cli {d}: protected (3 faults <= capacity) tokens differ from off")
+            check(prot.manager.n_confirmed == 3, f"serve_cli {d}: {prot.manager.n_confirmed} faults confirmed")
+        check(runs["faults64"]["summary"]["effective_slots_final"] == 0,
+              f"serve_cli faults64: effective_slots_final {runs['faults64']['summary']['effective_slots_final']}")
+        check(runs["remap"]["summary"]["remapped_final"] > 0, "serve_cli remap: nothing remapped")
+        obs = runs["obs"]
+        with open(os.path.join(files["card"], "ev.jsonl.prom")) as f:
+            prom = f.read()
+        check(obs["scrape"] is not None and _prom_lines(obs["scrape"]) == _prom_lines(prom),
+              "serve_cli obs: the /metrics scrape differs from the .prom file")
+        check(obs["httpd"]._host == "127.0.0.1" and obs["httpd"]._httpd is None,
+              "serve_cli obs: the endpoint is bound elsewhere than 127.0.0.1 or still up")
+        check(obs["summary"]["counters"]["protected_calls"] == obs["counts"]["ft_matmul"],
+              f"serve_cli obs: protected_calls {obs['summary']['counters']['protected_calls']} vs "
+              f"{obs['counts']['ft_matmul']} ft_matmul launches")
+
+        def events(where):
+            with open(os.path.join(files[where], "ev.jsonl")) as f:
+                return [{k: v for k, v in json.loads(ln).items() if k != "ts"} for ln in f]
+
+        def text(where, name):
+            with open(os.path.join(files[where], name)) as f:
+                return f.read()
+
+        check(events("card") == events("cpu"), "serve_cli obs: the card's events differ from the CPU's")
+        check(text("card", "spans.jsonl") == text("cpu", "spans.jsonl"), "serve_cli obs: spans differ")
+        check(os.path.getsize(os.path.join(files["card"], "series.npz")) > 0, "serve_cli obs: no series file")
+        written = sorted(os.listdir(files["card"]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(not os.path.exists(root), f"serve_cli: {root} not removed")
+    phase("serve_cli", arch="qwen1.5-0.5b (smoke)", argv=CLI_BASE, runs=out, launches=total,
+          equal_to_cpu="every summary key but wall_s and tokens_per_s", protected_equals_off=["twopass", "fused"],
+          scrape_equals_prom=True, files=written, files_removed=True, card=smi)
+    return total
+
+
+LAUNCH_PREFILL = (4, 512)
+
+
+def _decode_tokens(lm, dev, steps: int, n: int = 4) -> list[torch.Tensor]:
+    g = torch.Generator(device=dev).manual_seed(11)
+    return [torch.randint(0, lm.vocab, (n, 1), generator=g, device=dev, dtype=torch.int32) for _ in range(steps)]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32)
+
+
+def _caches_equal(a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+
+    return all(torch.equal(_bits(x), _bits(y)) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def launch_decode(bundle, smi: str, *, steps: int = 8) -> dict:
+    """``make_decode`` at full width on ``bundle``'s model, 4 slots, fused:
+    the step a CUDA graph (one capture), each replayed step launching the
+    path's kernels exactly ``per_step`` times (the counts set to 0 just
+    before the replays, read just after); its logits and cache bit for bit
+    the bundle's captured step's over the same cache and tokens, in the off
+    and unprotected states; protected (3 faults <= capacity) equal to off
+    and unprotected different, through ``_prefill_ctx``'s three contexts.
+    Returns the phase's numbers and the replays' launches."""
+    from repro_torch.launch.serve import make_decode
+
+    lm, dev, arch = bundle.lm, bundle.device, bundle.lm.name
+    toks = _decode_tokens(lm, dev, steps)
+    want = per_step(arch)
+    kernels = _kernels()
+
+    def run(fn, cache):
+        logits, times = [], []
+        for i, tok in enumerate(toks):
+            if i == 1:
+                for k in kernels.values():
+                    k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, out = fn(bundle.work, cache, {"token": tok})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(out is cache, f"{arch} make_decode: the cache is not advanced in place")
+            logits.append(lg)
+        counts = {name: k.launches for name, k in kernels.items()}
+        return logits, times, counts
+
+    # the served step: the bundle's own context and captured step
+    served = {}
+    for name, state in (("off", bundle.empty_state), ("unprotected", _fault_state([(0, 0, 30, 1)], dev))):
+        cache = bundle.fresh_cache()
+        step = bundle.captured_step(cache)  # held: the bundle keeps a weak reference
+        logits = []
+        for tok in toks:
+            lg, _ = bundle.step_fn(bundle.work, cache, tok, state, bundle.identity_plan)
+            logits.append(lg.clone())
+        check(step.captures == 1, f"{arch}: the bundle's step captured {step.captures} times")
+        served[name] = (logits, cache, state)
+        del step
+    fn, specs = make_decode(lm, str(dev), ftc=bundle.ftc)
+    check(specs is None, "make_decode: specs")
+    for name, (logits, cache, state) in served.items():
+        bundle.ftc.swap(state=state, plan=bundle.identity_plan)
+        mine = bundle.fresh_cache()
+        got, _, _ = run(fn, mine)
+        check(all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, logits)) and _caches_equal(mine, cache),
+              f"{arch} make_decode {name}: logits or cache differ from the bundle's captured step")
+    del fn, served
+    # the three modes through make_decode
+    out, launches = {}, {}
+    ctxs = {}
+    for mode, faults in (("off", []), ("protected", BIST_FAULTS), ("unprotected", [(0, 0, 30, 1)])):
+        ctxs[mode] = _prefill_ctx("unprotected" if mode == "unprotected" else "protected", faults, "fused", dev)
+        fn, _ = make_decode(lm, str(dev), ftc=ctxs[mode])
+        logits, times, counts = run(fn, bundle.fresh_cache())
+        replays = steps - 1
+        check(fn.captured.captures == 1 and fn.captured.replays == replays,
+              f"{arch} make_decode {mode}: {fn.captured.captures} captures, {fn.captured.replays} replays")
+        for name, n in want.items():
+            check(counts[name] == n * replays, f"{arch} make_decode {mode}: {name} launched {counts[name]} times in "
+                                               f"{replays} replayed steps, want {n} a step")
+        check(counts["probe_check_pair"] == counts["probe_check"] == 0, f"{arch} make_decode {mode}: probes {counts}")
+        out[mode] = (logits, 1e3 * float(np.median(times[2:])))
+        launches[mode] = counts
+        del fn
+    # a second builder on the same params and context: allocated bytes with
+    # each alive and after each is freed; the first one's graph pool, cache
+    # and buffers must not outlive it
+    allocated = {}
+    for i in (1, 2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        allocated[f"before_{i}"] = torch.cuda.memory_allocated(dev)
+        fn, _ = make_decode(lm, str(dev), ftc=ctxs["protected"])
+        cache = bundle.fresh_cache()
+        for tok in toks[:3]:
+            fn(bundle.work, cache, {"token": tok})
+        torch.cuda.synchronize()
+        allocated[f"with_{i}"] = torch.cuda.memory_allocated(dev)
+        allocated[f"pool_{i}"] = fn.captured.pool_bytes
+        del fn, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        allocated[f"after_{i}"] = torch.cuda.memory_allocated(dev)
+    check(allocated["after_2"] <= allocated["after_1"] and allocated["after_2"] <= allocated["before_2"],
+          f"{arch} make_decode: a freed builder left allocated bytes behind: {allocated}")
+    off, prot, unprot = (out[m][0] for m in ("off", "protected", "unprotected"))
+    check(all(torch.equal(_bits(a), _bits(b)) for a, b in zip(off, prot)), f"{arch} make_decode: protected differs from off")
+    check(not torch.equal(_bits(off[0]), _bits(unprot[0])), f"{arch} make_decode: unprotected equals off")
+    check(tuple(off[0].shape) == (4, 1, lm.padded_vocab) and bool(torch.isfinite(off[0][..., :lm.vocab].float()).all()),
+          f"{arch} make_decode: logits {tuple(off[0].shape)}")
+    return dict(decode_ms_median={m: v[1] for m, v in out.items()}, launches_per_replayed_step=want,
+                replayed_steps=steps - 1, launches=launches, allocated_bytes=allocated,
+                equal_to_served_step=["off", "unprotected"], protected_equals_off=True, unprotected_differs=True)
+
+
+def launch_steps_phase(dev, smi: str, bundle, prefilled: dict | None) -> dict[str, int]:
+    """The launch step builders at full width on the served model's bundle:
+    ``launch_decode`` and, with ``prefilled`` (the prefill_fused phase's
+    batch and logits), ``make_prefill`` at ``LAUNCH_PREFILL`` in the three
+    modes, bit for bit the prefill_fused phase's logits, protected equal to
+    off and unprotected different, and the decode step's device busy share
+    from a profiled window of replays.  Returns the replayed steps'
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import make_decode, make_prefill
+
+    lm, arch = bundle.lm, bundle.lm.name
+    t0 = time.perf_counter()
+    dec = launch_decode(bundle, smi)
+    got = dict(arch=arch, slots=4, decode=dec)
+    if prefilled is not None:
+        batch = prefilled["batch"]
+        check(tuple(batch["tokens"].shape) == LAUNCH_PREFILL, f"{arch} make_prefill: batch {tuple(batch['tokens'].shape)}")
+        logits, ms = {}, {}
+        for mode, ctx in prefilled["ctxs"].items():
+            fn, specs = make_prefill(lm, str(dev), ftc=ctx)
+            check(specs is None, "make_prefill: specs")
+            fn(bundle.work, batch)  # warm-up
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits[mode] = fn(bundle.work, batch)
+            torch.cuda.synchronize()
+            ms[mode] = 1e3 * (time.perf_counter() - t1)
+            check(torch.equal(_bits(logits[mode]), _bits(prefilled["logits"][mode])),
+                  f"{arch} make_prefill {mode}: logits differ from the prefill_fused phase's")
+        check(torch.equal(_bits(logits["off"]), _bits(logits["protected"])), f"{arch} make_prefill: protected differs from off")
+        check(not torch.equal(_bits(logits["off"]), _bits(logits["unprotected"])), f"{arch} make_prefill: unprotected equals off")
+        got["prefill"] = dict(batch=LAUNCH_PREFILL[0], seq=LAUNCH_PREFILL[1], ms=ms, equal_to_prefill_fused=True,
+                              protected_equals_off=True, unprotected_differs=True)
+        # the decode step's device busy share: a profiled window of replays
+        ctx = prefilled["ctxs"]["protected"]
+        fn, _ = make_decode(lm, str(dev), ftc=ctx)
+        cache = bundle.fresh_cache()
+        toks = _decode_tokens(lm, bundle.device, 6)
+        for tok in toks[:2]:
+            fn(bundle.work, cache, {"token": tok})
+        launches0 = {name: k.launches for name, k in _kernels().items()}
+
+        def window():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                for tok in toks[2:]:
+                    fn(bundle.work, cache, {"token": tok})
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t1) / len(toks[2:])
+            return prof.key_averages(), wall
+        ka, wall, seen = agreed_window(window)
+        for name, k in _kernels().items():  # not main-path launches
+            k.launches = launches0[name]
+        busy = sum(_self_device_us(e) for e in _device_events(ka)) / 1e3 / len(toks[2:])
+        # the busy share over the unprofiled median: under the profiler a
+        # replay's wall time grows with the tracing of each of its kernels
+        got["decode"].update(profiled_step_ms=1e3 * wall, device_busy_ms=busy,
+                             device_busy_share=busy / dec["decode_ms_median"]["protected"], window_device_events=seen)
+        del fn, cache
+    got.update(phase_s=time.perf_counter() - t0, card=smi)
+    phase("launch_steps", **got)
+    total = dict.fromkeys(_kernels(), 0)
+    for counts in dec["launches"].values():
+        for k, n in counts.items():
+            total[k] += n
+    return total
+
+
+def serving_twins_phase(dev, smi) -> dict[str, int]:
+    """The serving benchmarks' twins on the card, each written to
+    experiments/bench_torch/: serving_goodput quick (all claims; the
+    protected curve, capacity, surviving columns and effective slots equal
+    to experiments/bench/serving_goodput.json, the unprotected curve printed
+    beside the file's), scan_latency quick (every correctness claim; the
+    speed claim's outcome printed with the boot and step ms),
+    detector_coverage quick (the matrix equal to the file's), ft_overhead
+    quick (its correctness claims) and then in full mode on
+    ``FT_FULL_FAMILIES`` (its correctness claims asserted, its two timing
+    claims printed).  Returns the twins' launches (the counts set to 0 just
+    before each, read just after)."""
+    from repro_torch.bench import detector_coverage, ft_overhead, scan_latency, serving_goodput
+    from repro_torch.bench.common import save_result
+
+    kernels = _kernels()
+    total = dict.fromkeys(kernels, 0)
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def committed(name):
+        with open(os.path.join(here, "experiments", "bench", f"{name}.json")) as f:
+            return json.load(f)
+
+    def twin(name, fn, **kw):
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = fn(device=str(dev), **kw)
+        res["elapsed_s"] = time.perf_counter() - t0
+        counts = {n: k.launches for n, k in kernels.items()}
+        for n, c in counts.items():
+            total[n] += c
+        save_result(name, res)
+        return res, counts
+
+    out = {}
+    res, counts = twin("serving_goodput", lambda device: serving_goodput.run(True, device=device))
+    ref = committed("serving_goodput")
+    check(res["all_ok"], f"serving_goodput claims: {[c for c in res['claims'] if not c['ok']]}")
+    exact = {k: (res["curve"][k], ref["curve"][k]) for k in ("per", "n_faults", "protected", "surviving_cols",
+                                                              "effective_slots")}
+    exact.update(capacity=(res["capacity"], ref["capacity"]),
+                 reference_goodput=(res["reference_goodput"], ref["reference_goodput"]))
+    check(all(a == b for a, b in exact.values()), f"serving_goodput vs the committed file: {exact}")
+    out["serving_goodput"] = dict(protected=res["curve"]["protected"], surviving_cols=res["curve"]["surviving_cols"],
+                                  effective_slots=res["curve"]["effective_slots"], equal_to_file=sorted(exact),
+                                  unprotected=res["curve"]["unprotected"], unprotected_file=ref["curve"]["unprotected"],
+                                  unprotected_reference_cpu=[48, 48, 42, 36, 30, 12], launches=counts,
+                                  seconds=res["elapsed_s"])
+
+    res, counts = twin("scan_latency", lambda device: scan_latency.run(True, device=device))
+    speed = res["claims"][-1]
+    check("not collapsed" in speed["claim"] and all(c["ok"] for c in res["claims"][:-1]),
+          f"scan_latency correctness claims: {[c for c in res['claims'][:-1] if not c['ok']]}")
+    out["scan_latency"] = dict(speed_claim=speed["claim"], speed_claim_ok=speed["ok"], speed_detail=speed["detail"],
+                               rows=[{k: r[k] for k in ("rows", "cols", "scan_block", "boot_batched_ms",
+                                                        "boot_legacy_ms", "boot_speedup_x", "step_ms")}
+                                     for r in res["results"]],
+                               correctness_claims=len(res["claims"]) - 1, launches=counts, seconds=res["elapsed_s"])
+
+    res, counts = twin("detector_coverage", lambda device: detector_coverage.run(True, device=device))
+    ref = committed("detector_coverage")
+    check(res["all_ok"] and res["matrix"] == ref["matrix"] and res["retraces"] == ref["retraces"],
+          f"detector_coverage vs the committed file: {res['matrix']} {res['retraces']}")
+    out["detector_coverage"] = dict(matrix_equals_file=True, retraces=res["retraces"], launches=counts,
+                                    seconds=res["elapsed_s"])
+
+    res, counts = twin("ft_overhead_quick", lambda device: ft_overhead.run(True, device=device))
+    check(res["all_ok"], f"ft_overhead quick claims: {[c for c in res['claims'] if not c['ok']]}")
+    quick = dict(claims=len(res["claims"]), launches=counts, seconds=res["elapsed_s"])
+    res, counts = twin("ft_overhead", lambda device: ft_overhead.run(False, device=device,
+                                                                          families=FT_FULL_FAMILIES))
+    timing = ("no slower than twopass", "ROADMAP target")
+    correct = [c for c in res["claims"] if not any(t in c["claim"] for t in timing)]
+    check(all(c["ok"] for c in correct), f"ft_overhead full correctness claims: {[c for c in correct if not c['ok']]}")
+    out["ft_overhead"] = dict(
+        quick=quick, full_families=list(FT_FULL_FAMILIES), steps=res["steps"], repeats=res["repeats"],
+        n_slots=res["n_slots"],
+        results={r["arch"]: {k: v for k, v in r.items() if k != "arch"} for r in res["results"]},
+        sites={f"{r['arch']}/{r['site']}": {k: r[k] for k in ("twopass_overhead_x", "fused_overhead_x",
+                                                              "fused_speedup_x")} for r in res["site_results"]},
+        timing_claims=[[c["claim"], c["ok"], c["detail"]] for c in res["claims"] if c not in correct],
+        launches=counts, seconds=res["elapsed_s"])
+    phase("serving_twins", **out, card=smi)
+    return total
+
+
 def main() -> None:
     smi = device_phase()
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     dev = torch.device("cuda")
     build_phase()
     err = {"ft_matmul": max(ft_matmul_phase(dev), mixed_dtype_checks(dev)),
@@ -3094,8 +3578,11 @@ def main() -> None:
             train = train_phase(dev, smi, bundle)
             checkpoint_phase(dev, smi, train)
             del train
-        per_prefill[arch] = prefill_phase(dev, smi, bundle)
-        del bundle, runs
+        per_prefill[arch], prefilled = prefill_phase(dev, smi, bundle)
+        # the launch step builders on the served model's bundle, before it is freed
+        for name, n in launch_steps_phase(dev, smi, bundle, prefilled if arch == QWEN else None).items():
+            launches[name] += n
+        del bundle, runs, prefilled
         gc.collect()
         torch.cuda.empty_cache()  # the next model's bundle gets the card's memory
     for arch in FAMILIES:  # the attention families, one bundle at a time
@@ -3104,7 +3591,7 @@ def main() -> None:
             launches[name] += n
         per_path[arch] = timing_phase(dev, smi, arch, runs)
         if arch in PREFILL:  # the families whose forward runs other matmuls than their decode
-            per_prefill[arch] = prefill_phase(dev, smi, bundle)
+            per_prefill[arch], _ = prefill_phase(dev, smi, bundle)
         del bundle, runs
         gc.collect()
         torch.cuda.empty_cache()
@@ -3113,6 +3600,10 @@ def main() -> None:
         launches[name] += n
     vfleet_phase(dev, smi)
     obs_overhead_phase(dev, smi)
+    for name, n in serve_cli_phase(dev, smi).items():  # the serving CLI at smoke size, card and CPU
+        launches[name] += n
+    for name, n in serving_twins_phase(dev, smi).items():
+        launches[name] += n
 
     def matmul_row(name: str, replaces: str) -> dict:
         paths = {arch: t[name] for arch, t in per_path.items() if name in t}

@@ -1,6 +1,7 @@
 """Runs the twins: one module per paper table/figure, the campaign's
 statistical acceptance run, and the beyond-paper twins (repair recovery,
-fleet goodput, cluster FFP, the telemetry tax).
+fleet goodput, cluster FFP, the telemetry tax, serving goodput, the
+protection tax per family, scan latency, detector coverage).
 
     PYTHONPATH=src python -m repro_torch.bench.run [--quick] [--only NAME] [--device cpu|cuda]
 
@@ -20,6 +21,7 @@ def modules() -> dict:
     from repro_torch.bench import (
         campaign,
         cluster_ffp,
+        detector_coverage,
         fig02_accuracy_vs_per,
         fig03_motivation_ffp,
         fig09_area,
@@ -30,8 +32,11 @@ def modules() -> dict:
         fig14_scalability,
         fig15_dppu_grouping,
         fleet_goodput,
+        ft_overhead,
         obs_overhead,
         repair_recovery,
+        scan_latency,
+        serving_goodput,
         tab01_detection,
     )
 
@@ -51,6 +56,10 @@ def modules() -> dict:
         "fleet_goodput": fleet_goodput.run,
         "cluster_ffp": cluster_ffp.run,
         "obs_overhead": obs_overhead.run,
+        "serving_goodput": serving_goodput.run,
+        "ft_overhead": ft_overhead.run,
+        "scan_latency": scan_latency.run,
+        "detector_coverage": detector_coverage.run,
     }
 
 

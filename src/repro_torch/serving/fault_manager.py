@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import FaultState, HyCAConfig, fault_state_from_map, surviving_columns
-from repro_torch.core.scan import build_scan_engine, probe_operands
+from repro_torch.core.scan import ScanState, build_scan_engine, probe_operands
 
 HEALTHY, SUSPECT, CONFIRMED, REPAIRED, RETIRED = "healthy", "suspect", "confirmed", "repaired", "retired"
 # an over-capacity confirmed fault whose PE column is handled model-side: a
@@ -401,22 +401,43 @@ class FaultManager:
         self._sync()
         return not bool(flags.any()), (r0, r0 + block)
 
-    def boot_scan(self) -> int:
-        """Power-on scan: ``max_boot_sweeps`` whole-array sweeps.  The engine
-        probes whole row-blocks on the device and merges detections into the
-        FPT there.  Returns #confirmed."""
+    def boot_scan(self, *, batched: bool = True) -> int:
+        """Power-on scan: ``max_boot_sweeps`` whole-array sweeps.
+
+        ``batched=True`` (default): the engine probes whole row-blocks on the
+        device and merges detections into the FPT there.  ``batched=False``
+        keeps the legacy per-PE host loop (identical probes, so an identical
+        confirmed set; the reference the batched path is held to).  Returns
+        #confirmed."""
+        c = self.engine.cfg
         sweep0 = self.scan_state.sweep
         n_sweeps = self.cfg.max_boot_sweeps
         ops = [self.injector.probe_operands(sweep0 + s, self.cfg.probe_window)
                for s in range(n_sweeps)]
-        fmap, sbit, sval = self.injector.truth_grids(self.device)
-        px_stack = torch.from_numpy(np.stack([px for px, _ in ops])).to(self.device)
-        pw_stack = torch.from_numpy(np.stack([pw for _, pw in ops])).to(self.device)
-        self.scan_state, fs = self.engine.boot_scan(
-            self.scan_state, self.confirmed_state, fmap, sbit, sval, px_stack, pw_stack,
-        )
-        self._set_confirmed(fs)
-        self.scans += n_sweeps * self.engine.cfg.steps_per_sweep
+        if batched:
+            fmap, sbit, sval = self.injector.truth_grids(self.device)
+            px_stack = torch.from_numpy(np.stack([px for px, _ in ops])).to(self.device)
+            pw_stack = torch.from_numpy(np.stack([pw for _, pw in ops])).to(self.device)
+            self.scan_state, fs = self.engine.boot_scan(
+                self.scan_state, self.confirmed_state, fmap, sbit, sval, px_stack, pw_stack,
+            )
+            self._set_confirmed(fs)
+            self.scans += n_sweeps * c.steps_per_sweep
+        else:
+            hits = self.scan_state.hits.cpu().numpy().copy()
+            for px, pw in ops:
+                ar = self.injector.corrupted_probe(px, pw)
+                ar_neg = self.injector.corrupted_probe(px, -pw)
+                expect = (px.astype(np.int64) @ pw.astype(np.int64)).astype(np.int32)
+                expect_neg = (px.astype(np.int64) @ -pw.astype(np.int64)).astype(np.int32)
+                for r in range(c.rows):          # one PE per iteration, the
+                    for col in range(c.cols):    # pre-ScanEngine behaviour
+                        self.scans += 1
+                        bad = bool(ar[r, col] != expect[r, col]) or bool(ar_neg[r, col] != expect_neg[r, col])
+                        if bad and hits[r, col] < c.confirm_hits:
+                            hits[r, col] += 1
+            self.scan_state = ScanState(self.scan_state.cursor, sweep0 + n_sweeps,
+                                        torch.from_numpy(hits).to(self.device))
         self._sync()
         self._emit("scan.boot", sweeps=n_sweeps, confirmed=self.n_confirmed)
         return self.n_confirmed

@@ -151,6 +151,21 @@ GRAPH_DISPATCHES = ("plain", "fused")
 STEP_KERNELS = (ft_matmul, ft_matmul_batched)
 
 
+_WARM_UP_STREAMS: dict[int, torch.cuda.Stream] = {}
+
+
+def warm_up_stream(device: torch.device) -> torch.cuda.Stream:
+    """The one side stream of ``device`` on which every capture runs its
+    warm-up.  PyTorch keeps a cuBLAS workspace for each stream that has run
+    a cuBLAS call, until the process ends, so a new stream for each capture
+    would leave one workspace behind for each captured step."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _WARM_UP_STREAMS:
+        _WARM_UP_STREAMS[idx] = torch.cuda.Stream(idx)
+    return _WARM_UP_STREAMS[idx]
+
+
 def graph_holds(device: torch.device, dispatch: str) -> bool:
     """Can a CUDA graph hold the decode step?  On a card, under the
     ``plain`` and ``fused`` dispatches.  Never under ``twopass``: its engine
@@ -230,7 +245,7 @@ class CapturedStep:
     def _warm_up_and_capture(self) -> None:
         dev = self.bundle.device
         main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
+        side = warm_up_stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             self._body()  # this step's own work, run eagerly: the warm-up

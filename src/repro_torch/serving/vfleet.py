@@ -71,7 +71,7 @@ from repro_torch.core.engine import FaultState, empty_fault_state
 from repro_torch.core.scan import corrupt_probe, probe_operands
 from repro_torch.runtime.elastic import initial_spares
 from repro_torch.serving.fleet import FleetConfig
-from repro_torch.serving.server import resolve_device
+from repro_torch.serving.server import resolve_device, warm_up_stream
 from repro_torch.serving.traffic import sample_trace
 
 # one entry appended per build of a tick program: the no-rebuild witness
@@ -441,7 +441,7 @@ class _Program:
     def _warm_up_and_capture(self) -> None:
         dev = self.device
         main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
+        side = warm_up_stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             self.tick()  # this tick's own work, run eagerly: the warm-up
