@@ -236,6 +236,26 @@ Phases, each printed on its own line; any failure exits non-zero:
      that depend on no float order equal to experiments/bench/*.json, the
      correctness claims held, the timing claims printed.
 
+  16. the analysis tier and the plan autotuner.  autotune — the measured
+     plan search of kernels/autotune.py on the card at qwen1.5-0.5b's four
+     decode shapes and three prefill shapes (bf16), its cache in a
+     temporary directory: each split's time (CUDA events) beside ft_plan's
+     pick; every candidate plan against ft_matmul_ref as in 3, bf16 and
+     f32; a fused_block="auto" context on that cache launches the tuned
+     plan and a default context ft_plan, each bitwise a direct call.
+     dryrun — launch/dryrun.py on the host mesh (meta tensors, full width),
+     qwen1.5-0.5b and granite-moe-3b-a800m at every applicable cell and
+     every other family at decode_32k, in ANALYSIS_WORKERS processes: every
+     record ok, each cell's trace seconds, FLOPs, bytes and argument and
+     output bytes; the specs-only records of all ten configs on 16 x 16 and
+     2 x 16 x 16 (every spec divides its dimension), argument bytes per
+     device.  probes — qwen at train_4k and decode_32k reconstructed from
+     reduced-depth probes, equal to the dry run's direct count within
+     PROBE_TOL.  roofline — the dry-run records' table on the card's
+     constants, and the served qwen step's (4 slots, 96-row cache, bf16
+     working copies, 169 protected calls) bound beside its captured step
+     from 7.  The autotuner's timed launches count under ft_matmul.
+
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -3551,6 +3571,245 @@ def serving_twins_phase(dev, smi) -> dict[str, int]:
     return total
 
 
+# --------------------------------------------------------------------------- #
+# the analysis tier and the plan autotuner
+# --------------------------------------------------------------------------- #
+ANALYSIS_WORKERS = 6  # the meta dry runs, on the host's cores after the card's timing is done
+# the full-width dry run: qwen1.5-0.5b and granite-moe-3b-a800m at every
+# applicable cell, every other family at decode_32k
+DRYRUN_ALL_CELLS = (QWEN, GRANITE)
+SERVED_DECODE = ("served_decode", "decode", 96, 4)  # the served step: 4 slots over a 96-row cache
+PROBE_TOL = 1e-9  # the reconstruction against the direct count, relative
+
+
+def _dryrun_worker_init() -> None:
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""  # a meta trace touches no card
+
+
+def _dryrun_cell(task):
+    from repro_torch.launch import dryrun
+
+    return dryrun.run_cell(*task, "host", verbose=False)
+
+
+def tuned_shapes() -> list[tuple[str, int, int, int, str]]:
+    """(name, M, K, N, layout) of qwen1.5-0.5b's distinct ft_matmul shapes,
+    decode then prefill; the head reads the tied table's transposed view."""
+    out, seen = [], set()
+    for table in (DECODE_SHAPES[QWEN], PREFILL_SHAPES[QWEN]):
+        for name, m, k, n, _ in table:
+            if (m, k, n) not in seen:
+                seen.add((m, k, n))
+                out.append((name, m, k, n, "k_fast" if name.startswith("head") else "n_fast"))
+    return out
+
+
+def autotune_checks(dev, shapes, cache: dict) -> float:
+    """Every candidate plan of every tuned shape against ``ft_matmul_ref``
+    as phase 3 holds the default plan (bitwise on integer-valued and f32
+    ±(1 + 2^-8) operands, the bf16 store bitwise its own f32 output cast,
+    random operands within RAND_TOL), bf16 and f32.  Returns the max |Δ|."""
+    from repro_torch.kernels.autotune import key
+    from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_ref, plan_candidates
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    and_g, or_g = fault_grids(dev)
+    max_err = 0.0
+    for name, m, k, n, layout in shapes:
+        check(key(m, n, k, torch.bfloat16, layout) in cache, f"{name}: no cache entry")
+        for plan in plan_candidates(layout):
+            def kernel(x, w, a, o, out_dtype=torch.float32, plan=plan):
+                return ft_matmul(x, w, a, o, out_dtype=out_dtype, plan=plan)
+
+            for dtype in (torch.bfloat16, torch.float32):
+                def operands(kind: str):
+                    x = _draw(g, dev, dtype, kind, (m, k), 1.0, kind == "frac_x")
+                    fw = kind == "frac_w"
+                    if layout == "k_fast":
+                        return x, _draw(g, dev, dtype, kind, (n, k), 0.02, fw).T
+                    return x, _draw(g, dev, dtype, kind, (k, n), 0.02, fw)
+
+                e, _ = _kernel_checks(f"ft_matmul {name} {plan}", kernel, ft_matmul_ref, operands, and_g, or_g,
+                                      dtype)
+                max_err = max(max_err, e)
+    return max_err
+
+
+def auto_context_checks(dev, shapes, cache: dict) -> dict:
+    """An ``fused_block="auto"`` context on the tuned cache launches each
+    shape's tuned plan, a default context ``ft_plan``; each output bitwise a
+    direct ``ft_matmul`` call with that plan (the default one: the bits the
+    served path has always had)."""
+    from repro_torch.core import ftcontext as ftc_mod
+    from repro_torch.core.engine import HyCAConfig
+    from repro_torch.kernels.autotune import key
+    from repro_torch.kernels.ft_matmul import FTPlan, ft_matmul, plan_of
+
+    state = _fault_state(BIST_FAULTS, dev)
+    hyca = HyCAConfig(rows=ROWS, cols=COLS, mode="protected")
+    ctxs = {fb: ftc_mod.build_ftcontext(state, hyca, dispatch="fused", fused_block=fb) for fb in (None, "auto")}
+    seen = []
+
+    def spy(x, w, a, o, out_dtype=torch.float32, plan=None):
+        seen.append(plan_of(x, w) if plan is None else plan)
+        return ft_matmul(x, w, a, o, out_dtype=out_dtype, plan=plan)
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    out = {}
+    ftc_mod.ft_matmul = spy
+    try:
+        for name, m, k, n, layout in shapes:
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            w = (torch.randn((n, k) if layout == "k_fast" else (k, n), generator=g, device=dev) * 0.02).to(
+                torch.bfloat16)
+            w = w.T if layout == "k_fast" else w
+            tuned = FTPlan(**cache[key(m, n, k, torch.bfloat16, layout)]["plan"])
+            got = {}
+            for fb, ctx in ctxs.items():
+                seen.clear()
+                got[fb] = ctx.matmul(x, w, site="ffn")
+                check(len(seen) == 1, f"{name}: {len(seen)} ft_matmul calls")
+                want_plan = tuned if fb == "auto" else plan_of(x, w)
+                check(seen[0] == want_plan, f"{name} fused_block={fb}: launched {seen[0]}, not {want_plan}")
+                and_g, or_g = ctx.mask_grids(None)
+                direct = ft_matmul(x, w, and_g, or_g, out_dtype=torch.bfloat16,
+                                   plan=None if fb is None else tuned)
+                check(torch.equal(got[fb].view(torch.int16), direct.view(torch.int16)),
+                      f"{name} fused_block={fb}: not bitwise the direct call")
+            out[name] = dict(tuned=_plan_str(tuned), ft_plan=_plan_str(plan_of(x, w)),
+                             auto_equals_default=bool(torch.equal(got["auto"].view(torch.int16),
+                                                                  got[None].view(torch.int16))))
+    finally:
+        ftc_mod.ft_matmul = ft_matmul
+    return out
+
+
+def analysis_phase(dev, smi: str, served_qwen: dict) -> dict[str, int]:
+    """The analysis tier (``launch/{dryrun,probes,roofline}.py``, on
+    ``meta`` tensors on the host) and the plan autotuner
+    (``kernels/autotune.py``, on the card).  autotune — the measured search
+    at qwen1.5-0.5b's four decode shapes and three prefill shapes, its cache
+    in a temporary directory (never a cache a later run reads), each
+    candidate plan's time beside ft_plan's pick; every candidate plan
+    checked against ft_matmul_ref; an "auto" context launching the tuned
+    plan and a default one ft_plan, each bitwise its direct call.
+    dryrun — qwen1.5-0.5b and granite-moe-3b-a800m at every applicable cell
+    and each other family at decode_32k, traced in ANALYSIS_WORKERS
+    processes: status ok, each cell's trace seconds; the specs-only records
+    of all ten configs on 16 x 16 and 2 x 16 x 16, every spec dividing its
+    dimension, each config's argument bytes per device.  probes — qwen at
+    train_4k and decode_32k, the reconstruction equal to the dry run's
+    direct count within PROBE_TOL.  roofline — the dry-run records' table,
+    and the served qwen decode step's bound beside its measured captured
+    step.  Returns the autotuner's launches."""
+    import multiprocessing as mp
+    import tempfile
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.configs.shapes import SHAPES, ShapeCell, applicable_cells
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.ft_matmul import ft_matmul, ft_plan
+    from repro_torch.launch import dryrun, probes, roofline
+
+    shapes = tuned_shapes()
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_autotune-")
+    prior = os.environ.get("REPRO_AUTOTUNE_DIR")
+    os.environ["REPRO_AUTOTUNE_DIR"] = tune_dir
+    autotune.reset_cache()
+    try:
+        ft_matmul.launches = 0
+        t0 = time.perf_counter()
+        table = {}
+        for name, m, k, n, layout in shapes:
+            plan, ms, times = autotune.autotune_plan(m, n, k, dtype=torch.bfloat16, layout=layout, device=str(dev))
+            rule = ft_plan(1, m, n, k, torch.bfloat16, layout)
+            table[name] = dict(m=m, k=k, n=n, layout=layout, ms_by_split=times, tuned=_plan_str(plan), tuned_ms=ms,
+                               ft_plan=_plan_str(rule), ft_plan_ms=times[str(rule.split)],
+                               ft_plan_is_fastest=plan == rule)
+        launches = {"ft_matmul": ft_matmul.launches}
+        tune_s = time.perf_counter() - t0
+        cache = autotune.load_cache(reload=True)
+        check(os.path.dirname(autotune.cache_path()) == tune_dir, "the autotune cache left its temporary directory")
+        phase("autotune", shapes=table, dtype="bf16", seconds=tune_s, launches=launches["ft_matmul"],
+              timer="20 calls captured as one CUDA graph, CUDA events around a replay, min of 5; weights cycled past the L2",
+              card=smi)
+
+        tasks = [(a, c.name) for a in ARCH_IDS for c in applicable_cells(get_config(a))
+                 if a in DRYRUN_ALL_CELLS or c.name == "decode_32k"]
+        tasks.sort(key=lambda t: t[1] != "train_4k")  # the longest traces first
+        t0 = time.perf_counter()
+        with mp.get_context("spawn").Pool(ANALYSIS_WORKERS, initializer=_dryrun_worker_init) as pool:
+            pending = pool.map_async(_dryrun_cell, tasks)
+            # beside the dry runs: the candidate plans' checks, the contexts, the specs and the probes
+            max_err = autotune_checks(dev, shapes, cache)
+            contexts = auto_context_checks(dev, shapes, cache)
+            phase("autotune_checks", plans=sum(len(autotune.plan_candidates(s[4])) for s in shapes),
+                  dtypes=["bf16", "f32"], bitwise=["integer", "f32 frac_x", "f32 frac_w", "bf16 store = f32 cast"],
+                  random_tol=f"{RAND_TOL}*(|x|@|w|)", max_abs_err=max_err, contexts=contexts)
+            specs = {}
+            for a in ARCH_IDS:
+                for mk in ("single", "multi"):
+                    for cell in applicable_cells(get_config(a)):
+                        rec = dryrun.run_cell(a, cell.name, mk, verbose=False)
+                        check(rec["status"] == "specs_only", f"{a} {cell.name} {mk}: {rec['status']}")
+                        specs.setdefault(a, {}).setdefault(mk, {})[cell.name] = rec["argument_bytes_per_device"]
+            phase("specs_only", meshes={"single": [16, 16], "multi": [2, 16, 16]}, profile="tp", opt="zero1",
+                  argument_bytes_per_device=specs)
+            probed = {s: probes.probe_cell(get_config(QWEN), SHAPES[s]) for s in ("train_4k", "decode_32k")}
+            served = probes.probe_cell(get_config(QWEN), ShapeCell(*SERVED_DECODE), serve_bf16=True, hyca=True,
+                                       direct=True)
+            records = pending.get()
+        dry_s = time.perf_counter() - t0
+    finally:
+        autotune.reset_cache()
+        if prior is None:
+            os.environ.pop("REPRO_AUTOTUNE_DIR", None)
+        else:
+            os.environ["REPRO_AUTOTUNE_DIR"] = prior
+        import shutil
+
+        shutil.rmtree(tune_dir, ignore_errors=True)
+    bad = [(r["arch"], r["shape"], r.get("error")) for r in records if r["status"] != "ok"]
+    check(not bad, f"dry run: {bad}")
+    phase("dryrun", mesh="host", cells=len(records), workers=ANALYSIS_WORKERS, seconds=dry_s,
+          trace_s={f"{r['arch']}/{r['shape']}": r["trace_s"] for r in records},
+          flops={f"{r['arch']}/{r['shape']}": r["cost_analysis"]["flops"] for r in records},
+          bytes_accessed={f"{r['arch']}/{r['shape']}": r["cost_analysis"]["bytes accessed"] for r in records},
+          memory_analysis={f"{r['arch']}/{r['shape']}": r["memory_analysis"] for r in records})
+    direct = {r["shape"]: r for r in records if r["arch"] == QWEN}
+    rel = {}
+    for s, rec in probed.items():
+        want = direct[s]["cost_analysis"]
+        rel[s] = {k: abs(rec["total"][k] - want[w]) / want[w] for k, w in (("flops", "flops"),
+                                                                         ("bytes", "bytes accessed"))}
+        check(max(rel[s].values()) <= PROBE_TOL, f"probe {s}: reconstruction vs the direct count {rel[s]}")
+    phase("probes", arch=QWEN, rel_err_vs_direct=rel, tol=PROBE_TOL,
+          totals={s: r["total"] for s, r in probed.items()}, per_layer={s: r["per_layer"] for s, r in probed.items()})
+    rows = [roofline.analyse_record({"arch": r["arch"], "shape": r["shape"], "status": "ok", "n_devices": 1,
+                                     "total": {"flops": r["cost_analysis"]["flops"],
+                                               "bytes": r["cost_analysis"]["bytes accessed"],
+                                               "wire_bytes": r["collectives"]["total_wire_bytes"]}})
+            for r in records]
+    print(roofline.to_markdown(rows), flush=True)
+    srow = roofline.analyse_record({**served, "arch": QWEN, "shape": SERVED_DECODE[0], "status": "ok"},
+                                   cell=ShapeCell(*SERVED_DECODE))
+    step_ms = float(np.median(served_qwen["captured"]["step_ms_median"]))
+    check(served["protected_calls"] == per_step(QWEN)["ft_matmul"],
+          f"the served step's trace records {served['protected_calls']} protected calls, the path launches "
+          f"{per_step(QWEN)['ft_matmul']}")
+    phase("roofline", rows=[{k: r[k] for k in ("arch", "shape", "compute_s", "memory_s", "collective_s", "dominant",
+                                               "model_over_hlo", "roofline_fraction")} for r in rows],
+          served_decode=dict(cell=list(SERVED_DECODE), flops=served["direct"]["flops"],
+                             bytes=served["direct"]["bytes"], compute_ms=srow["compute_s"] * 1e3,
+                             memory_ms=srow["memory_s"] * 1e3, bound_ms=srow["bound_s"] * 1e3,
+                             dominant=srow["dominant"], protected_calls=served["protected_calls"],
+                             captured_step_ms=step_ms, graph_replay_ms=served_qwen["captured"]["graph_replay_ms"],
+                             roofline_share=srow["bound_s"] * 1e3 / step_ms),
+          constants=dict(PEAK_FLOPS_BF16=roofline.PEAK_FLOPS_BF16, HBM_BW=roofline.HBM_BW,
+                         NVLINK_BW=roofline.NVLINK_BW), card=smi)
+    return launches
+
+
 def main() -> None:
     smi = device_phase()
     dev = torch.device("cuda")
@@ -3562,7 +3821,7 @@ def main() -> None:
     probe_check_phase(dev)
     timed = {"probe_check": time_probe_check(dev, smi)}
     launches = dict.fromkeys(_kernels(), 0)
-    per_path, per_prefill = {}, {}
+    per_path, per_prefill, steady = {}, {}, {}
     for arch in (QWEN, GRANITE):
         bundle, runs = server_phase(dev, smi, arch)
         for name, n in runs["protected"]["counts"].items():
@@ -3570,7 +3829,7 @@ def main() -> None:
         per_path[arch] = timing_phase(dev, smi, arch, runs)
         busy = {step: profile_phase(bundle, smi, capture=capture)["device_busy_ms"]
                 for step, capture in (("eager", False), ("captured", True))}
-        steady_phase(bundle, smi, busy)
+        steady[arch] = steady_phase(bundle, smi, busy)
         if arch == QWEN:  # the kernel tier, the transients and the training slice on the served model's weights
             two_pass = two_pass_phase(dev, smi, bundle)
             transients_phase(dev, smi, bundle)
@@ -3603,6 +3862,8 @@ def main() -> None:
     for name, n in serve_cli_phase(dev, smi).items():  # the serving CLI at smoke size, card and CPU
         launches[name] += n
     for name, n in serving_twins_phase(dev, smi).items():
+        launches[name] += n
+    for name, n in analysis_phase(dev, smi, steady[QWEN]).items():  # the autotuner's timed ft_matmul launches
         launches[name] += n
 
     def matmul_row(name: str, replaces: str) -> dict:

@@ -53,7 +53,7 @@ from repro_torch.core.engine import (
     validate_fault_state,
     validate_repair_plan,
 )
-from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_batched
+from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_batched, w_layout
 from repro_torch.obs.fallbacks import record_site_fallback
 
 SITES = (
@@ -125,6 +125,9 @@ class FTContext:
     # obs: a Counters, and the static call ledger accumulate() folds over
     counters: object = None
     ledger: tuple | None = None
+    # the fused kernel's launch plan: None, the fixed rule ft_plan; "auto",
+    # the autotuner's cached plan for the call's shape, else ft_plan
+    fused_block: str | None = None
     # per-plan AND/OR mask pairs of the fused epilogue, computed once per
     # context, not once per matmul, and one step's counter increment; both
     # are rewritten in place by :meth:`swap`
@@ -327,7 +330,12 @@ class FTContext:
             return hyca_matmul(x, w, self.state, cfg=self.hyca, plan=plan)
         x2, lead = _as_2d(x)
         and_grid, or_grid = self.mask_grids(plan)
-        out = ft_matmul(x2, w, and_grid, or_grid, out_dtype=_store_dtype(x))
+        kplan = None
+        if self.fused_block == "auto" and x2.is_cuda:
+            from repro_torch.kernels.autotune import resolve_plan  # deferred: the cache is host state
+
+            kplan = resolve_plan(x2.shape[0], w.shape[1], x2.shape[1], w.dtype, w_layout(w))
+        out = ft_matmul(x2, w, and_grid, or_grid, out_dtype=_store_dtype(x), plan=kplan)
         return out.reshape(*lead, w.shape[-1])
 
     def _fused_einsum(self, x: torch.Tensor, w: torch.Tensor, plan: RepairPlan | None,
@@ -366,18 +374,22 @@ def build_ftcontext(
     CUDA kernel for CUDA tensors and its plain twin for CPU tensors.  The
     fault table and plan are validated against the array geometry now.
 
-    ``fused_block``: ``None`` or ``"auto"`` (the reference's default); both
-    take the kernels' fixed launch plan, the rule
+    ``fused_block``: ``None`` (the default, and what the server and every
+    step builder use) launches the kernels' fixed plan, the rule
     :func:`~repro_torch.kernels.ft_matmul.ft_plan` of shape, dtype and
-    layout.  The port has no block autotuning, so an explicit block and
-    ``autotune_shapes`` raise."""
+    layout, on every machine.  ``"auto"`` (the reference's default) takes
+    the autotuner's cached plan for each ``ft_matmul`` call's shape
+    (:func:`~repro_torch.kernels.autotune.resolve_plan`), else ``ft_plan``;
+    ``ft_matmul_batched`` keeps ``ft_plan``.  ``autotune_shapes`` (with
+    ``"auto"``) first runs the measured search on the card for each ``(m,
+    n, k)``, with bf16 operands and a row-major ``w``, the serving path's.
+    The port's kernels take no block, so an explicit block raises."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"unknown dispatch {dispatch!r}; known: {DISPATCHES}")
-    if fused_block not in (None, "auto") or autotune_shapes:
+    if fused_block not in (None, "auto"):
         raise NotImplementedError(
-            f"fused_block={fused_block!r}, autotune_shapes={autotune_shapes!r}: the port's kernels "
-            "take no block; their launch plan is the fixed rule kernels/ft_matmul.py::ft_plan "
-            "(pass fused_block=None or 'auto')"
+            f"fused_block={fused_block!r}: the port's kernels take no block; their launch plan is the fixed "
+            "rule kernels/ft_matmul.py::ft_plan (fused_block=None) or the autotuner's (fused_block='auto')"
         )
     policy = policy or ProtectPolicy()
     if state is not None:
@@ -385,7 +397,15 @@ def build_ftcontext(
     if plan is not None:
         for p in (plan.values() if isinstance(plan, dict) else (plan,)):
             validate_repair_plan(p, hyca.rows, hyca.cols)
-    return FTContext(state=state, hyca=hyca, policy=policy, dispatch=dispatch, plan=plan)
+    if fused_block == "auto":
+        from repro_torch.kernels import autotune  # deferred: keeps core import-light
+
+        autotune.load_cache()  # warm the persisted cache once per process
+        for m, n, k in autotune_shapes or ():
+            autotune.autotune_plan(int(m), int(n), int(k))
+    elif autotune_shapes:
+        raise ValueError("autotune_shapes tunes the plans that fused_block='auto' reads; pass fused_block='auto'")
+    return FTContext(state=state, hyca=hyca, policy=policy, dispatch=dispatch, plan=plan, fused_block=fused_block)
 
 
 def plain_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -65,6 +65,7 @@ STRIP = 64              # strip kernel: output columns per block
 KFAST_COLS = 32         # K-fast kernel: output columns per block
 KFAST_X_BYTES = 48 * 1024  # K-fast: x's (K padded to a step, 4 rows) f32 copy in shared memory
 MAX_SPLIT = 8           # the portable cluster size
+SPLITS = (1, 2, 4, 8)   # the cluster sizes a strip plan may take
 # the split rule: the smallest power of two that gives TARGET_BLOCKS blocks,
 # as long as each rank still reads at least MIN_SLICE_BYTES of w.  Measured
 # on an H100 at the decode shapes (tools/ft_matmul_sweep.py, PERF.md): past
@@ -116,6 +117,32 @@ def ft_plan(e: int, m: int, n: int, k: int, dtype: torch.dtype, layout: str) -> 
            and -(-k // (2 * split)) * STRIP * elt >= MIN_SLICE_BYTES):
         split *= 2
     return FTPlan(layout, split, STRIP)
+
+
+def plan_candidates(layout: str) -> tuple[FTPlan, ...]:
+    """Every plan the kernels take for ``w`` in ``layout``: a strip layout
+    at each split of :data:`SPLITS`, the K-fast one at its single plan."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; known: {LAYOUTS}")
+    if layout == "k_fast":
+        return (FTPlan(layout, 1, KFAST_COLS),)
+    return tuple(FTPlan(layout, s, STRIP) for s in SPLITS)
+
+
+def validate_plan(plan: FTPlan, w: torch.Tensor) -> FTPlan:
+    """``plan`` if the kernels can run it on ``w``: its layout must be
+    :func:`w_layout` of ``w``, its split one of :data:`SPLITS` (1 for
+    ``k_fast``) and its ``bn`` the layout's (``STRIP``, or ``KFAST_COLS`` for
+    ``k_fast``); else ValueError."""
+    if not isinstance(plan, FTPlan):
+        raise TypeError(f"a plan is an FTPlan, got {plan!r}")
+    layout = w_layout(w)
+    if plan.layout != layout:
+        raise ValueError(f"{plan}: w of shape {tuple(w.shape)} and strides {w.stride()} takes the "
+                         f"{layout!r} layout")
+    if plan not in plan_candidates(layout):
+        raise ValueError(f"{plan}: the {layout!r} layout takes {plan_candidates(layout)}")
+    return plan
 
 
 def plan_of(x: torch.Tensor, w: torch.Tensor) -> FTPlan:
@@ -184,12 +211,19 @@ def _check_operands(name: str, x: torch.Tensor, w: torch.Tensor, and_grid: torch
 
 
 def ft_matmul(x: torch.Tensor, w: torch.Tensor, and_grid: torch.Tensor,
-              or_grid: torch.Tensor, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              or_grid: torch.Tensor, out_dtype: torch.dtype = torch.float32,
+              plan: FTPlan | None = None) -> torch.Tensor:
     """``x (M, K) @ w (K, N)`` through the faulty virtual array; ``and_grid``
     / ``or_grid`` are the (rows, cols) int32 mask pair of
     :func:`repro_torch.core.engine.fault_mask_grids`.  Returns (M, N) of
-    ``out_dtype`` (float32 or bfloat16, rounded after the epilogue)."""
+    ``out_dtype`` (float32 or bfloat16, rounded after the epilogue).
+    ``plan``: None launches :func:`plan_of`'s; an explicit plan (the
+    autotuner's, ``kernels/autotune.py``) is checked by :func:`validate_plan`
+    first.  A split changes the order of the K sum, so another plan's float
+    output may differ from ``plan_of``'s in its last bits."""
     _check_out_dtype("ft_matmul", out_dtype)
+    if plan is not None:
+        validate_plan(plan, w)
     if x.device.type == "cpu":
         return ft_matmul_ref(x, w, and_grid, or_grid, out_dtype)
     if x.device.type != "cuda":
@@ -200,7 +234,7 @@ def ft_matmul(x: torch.Tensor, w: torch.Tensor, and_grid: torch.Tensor,
     rows, cols = ag.shape
     m, k = x.shape
     n = w.shape[1]
-    plan = plan_of(x, w)
+    plan = plan_of(x, w) if plan is None else plan
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     rc = _lib().ft_matmul_launch(
         x.data_ptr(), w.data_ptr(), ag.data_ptr(), og.data_ptr(), out.data_ptr(),

@@ -87,7 +87,7 @@ def _split_micro(batch: dict, n_micro: int) -> dict:
 
 
 def make_train_step(cfg: LMConfig, tc: TrainConfig, *, hyca: HyCAConfig | None = None,
-                    plan=None, grad_mask=None):
+                    plan=None, grad_mask=None, wrap_ftc=None):
     """``step(state, batch, fault_state=None) -> (state, metrics)``.
 
     ``batch``: {"tokens", "labels"} (B, S) int tensors on the state's
@@ -97,7 +97,10 @@ def make_train_step(cfg: LMConfig, tc: TrainConfig, *, hyca: HyCAConfig | None =
     ``plan``: a RepairPlan (or per-site dict) the protected forward applies.
     ``grad_mask``: a tree of broadcastable multipliers matching the params;
     the gradients are masked before the optimizer and the update is gated
-    by it, so frozen leaves stay bit for bit."""
+    by it, so frozen leaves stay bit for bit.
+    ``wrap_ftc``: applied to the step's FTContext (when there is one) before
+    the forward sees it; the cost probes (``launch/probes.py``) record the
+    protected calls through it."""
     if tc.hyca_mode != "off" and tc.hyca_dispatch == "fused":
         raise ValueError(
             "hyca_dispatch='fused' cannot train (ROADMAP C5): the fused epilogue works on bit "
@@ -112,6 +115,8 @@ def make_train_step(cfg: LMConfig, tc: TrainConfig, *, hyca: HyCAConfig | None =
         flat = tree_leaves(leaves)
         micro = _split_micro(batch, tc.n_micro)
         ftc = make_ftc(tc, hyca, fault_state, plan)
+        if ftc is not None and wrap_ftc is not None:
+            ftc = wrap_ftc(ftc)
         gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
         gflat = tree_leaves(gsum)
         dev = flat[0].device

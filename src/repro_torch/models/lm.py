@@ -105,6 +105,22 @@ class LMConfig:
             qkv_bias=self.qkv_bias, rope_theta=self.rope_theta, q_block=self.q_block,
         )
 
+    def n_params(self) -> int:
+        """Total parameter count, from ``meta`` params (no storage)."""
+        params = init_params(torch.Generator(), self, device="meta")
+        return sum(leaf.numel() for leaf in tree_leaves(params))
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only the routed top-k and the shared
+        experts)."""
+        total = self.n_params()
+        if self.moe is None:
+            return total
+        m = self.moe
+        per_expert = 3 * self.d_model * m.d_expert
+        inactive = (m.n_padded - m.top_k) * per_expert * (self.n_layers - self.first_k_dense)
+        return total - inactive
+
 
 PORTED_FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
 

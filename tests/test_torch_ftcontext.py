@@ -147,15 +147,33 @@ def test_site_policy_and_validation():
         tftc.increment()
 
 
+@pytest.fixture
+def isolated_autotune(tmp_path, monkeypatch):
+    """Both packages' autotune caches pointed at a throwaway dir, so a test
+    neither reads nor writes a persisted cache (the reference's
+    experiments/autotune/ nor the port's build/repro_torch/autotune/)."""
+    from repro.kernels import autotune as JA
+    from repro_torch.kernels import autotune as TA
+
+    monkeypatch.setenv("REPRO_AUTOTUNE_DIR", str(tmp_path / "autotune"))
+    JA.reset_cache()
+    TA.reset_cache()
+    yield TA
+    JA.reset_cache()
+    TA.reset_cache()
+
+
 @pytest.mark.parametrize("dispatch", ["plain", "twopass", "fused"])
 @pytest.mark.parametrize("mode", ["protected", "unprotected"])
-def test_fused_block_auto_is_the_fixed_plan(dispatch, mode):
-    """``fused_block="auto"``, the reference's default, builds the context
-    ``None`` builds (the fixed launch plan ``ft_plan``): bit-identical
-    outputs, equal to JAX's default context; an explicit block and
-    ``autotune_shapes`` still raise."""
+def test_fused_block_auto_is_the_fixed_plan(dispatch, mode, isolated_autotune):
+    """``fused_block="auto"``, the reference's default, builds a context
+    whose outputs are bit-identical to ``None``'s (the fixed launch plan
+    ``ft_plan``) and equal to JAX's default context, the autotune caches
+    isolated; an explicit block still raises, and ``autotune_shapes`` raises
+    on the CPU, naming the card: the plan search times the CUDA kernel."""
     jftc, none = _contexts(FAULTS, mode, dispatch)
     _, auto = _contexts(FAULTS, mode, dispatch, fused_block="auto")
+    assert auto.fused_block == "auto" and none.fused_block is None
     x, w = _int_operands((3, 12), 10, seed=4)
     for site in ("attn.qkv", "ffn", "head"):
         a = auto.matmul(torch.from_numpy(x), torch.from_numpy(w), site=site)
@@ -165,8 +183,9 @@ def test_fused_block_auto_is_the_fixed_plan(dispatch, mode):
         assert np.array_equal(a.numpy().view(np.int32), j.view(np.int32))
     with pytest.raises(NotImplementedError, match="ft_plan"):
         TF.build_ftcontext(none.state, none.hyca, fused_block=(8, 128, 128))
-    with pytest.raises(NotImplementedError, match="ft_plan"):
+    with pytest.raises(RuntimeError, match="needs the card"):
         TF.build_ftcontext(none.state, none.hyca, fused_block="auto", autotune_shapes=[(4, 128, 128)])
+    assert isolated_autotune.load_cache() == {}
 
 
 def test_int_dtype_fused_falls_back_and_is_recorded():

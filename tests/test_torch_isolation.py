@@ -50,6 +50,9 @@ def test_port_imports_with_jax_and_reference_package_blocked():
         "import repro_torch.core.area, repro_torch.core.fault_models, repro_torch.configs.hyca_dla\n"
         "import repro_torch.launch.hw, repro_torch.launch.serve, repro_torch.bench.regress\n"
         "import repro_torch.bench.run\n"
+        "import repro_torch.dist.sharding, repro_torch.configs.shapes, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.hlo_stats, repro_torch.launch.probes, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.roofline, repro_torch.kernels.autotune\n"
         "repro_torch.bench.run.modules()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
@@ -109,11 +112,14 @@ def test_every_entry_point_defaults_to_cuda():
     from repro_torch.transient.coverage import build_program, run_class, run_coverage
     from repro_torch.bench import detector_coverage, ft_overhead, scan_latency, serving_goodput
     from repro_torch.launch.serve import make_decode, make_prefill
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.kernels.autotune import autotune_plan
 
     assert ServerConfig().device == "cuda"
     for entry in (FaultManager, build_scan_engine, scan_array, scans_to_full_detection,
                   run_coverage, run_class, build_program, make_prefill, make_decode,
-                  serving_goodput.run, scan_latency.run, detector_coverage.run, ft_overhead.run):
+                  serving_goodput.run, scan_latency.run, detector_coverage.run, ft_overhead.run,
+                  make_host_mesh, autotune_plan):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
     assert ScanEngine(ScanConfig(rows=4, cols=4, window=8, block_rows=1, confirm_hits=2)).device == "cuda"
 
