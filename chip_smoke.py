@@ -247,9 +247,18 @@ Phases, each printed on its own line; any failure exits non-zero:
      qwen1.5-0.5b and granite-moe-3b-a800m at every applicable cell and
      every other family at decode_32k, in ANALYSIS_WORKERS processes: every
      record ok, each cell's trace seconds, FLOPs, bytes and argument and
-     output bytes; the specs-only records of all ten configs on 16 x 16 and
-     2 x 16 x 16 (every spec divides its dimension), argument bytes per
-     device.  probes — qwen at train_4k and decode_32k reconstructed from
+     output bytes.  dryrun_sharded — the same tool on the 16 x 16 and
+     2 x 16 x 16 meshes (DTensors of a fake process group, meta, full
+     width), in the same pool: every config at decode_32k, qwen and
+     granite-moe at every applicable cell; each record's status, trace
+     seconds, per-device FLOPs and bytes, collective counts and wire bytes
+     and its roofline collective term; qwen's decode_32k on 16 x 16 holds
+     its dot FLOPs x 256 to the host trace's and its collectives to the
+     Megatron count (2 L + 1 all-reduces of the activation over model, 2 L
+     gathers of the norm scales); the cells left to the CLI named with the
+     reason.  specs — every config's every cell on both meshes: every spec
+     divides its dimension, argument bytes per device, which a traced
+     record's arguments equal.  probes — qwen at train_4k and decode_32k reconstructed from
      reduced-depth probes, equal to the dry run's direct count within
      PROBE_TOL.  roofline — the dry-run records' table on the card's
      constants, and the served qwen step's (4 slots, 96-row cache, bf16
@@ -3589,7 +3598,35 @@ def _dryrun_worker_init() -> None:
 def _dryrun_cell(task):
     from repro_torch.launch import dryrun
 
-    return dryrun.run_cell(*task, "host", verbose=False)
+    arch, shape, mesh = task
+    try:
+        return dryrun.run_cell(arch, shape, mesh, verbose=False)
+    except Exception as e:  # recorded as the CLI records it, and failed by the phase
+        return {"arch": arch, "shape": shape, "mesh": mesh, "status": "FAILED", "error": f"{type(e).__name__}: {e}"}
+
+
+def sharded_checks(records: list[dict], host: list[dict]) -> dict:
+    """qwen1.5-0.5b's decode_32k on 16 x 16 at full depth: every sharded dim
+    divides, so one device's dot FLOPs x 256 equal the host trace's; its
+    collectives are Megatron's, 2 L + 1 all-reduces over model (wo, down,
+    the vocab-parallel embedding) of the (8, 1, 1024) bf16 activation, and
+    2 L all-gathers of the stacked norm scales the specs shard over model,
+    nothing else."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(QWEN)
+    rec = next(r for r in records if (r["arch"], r["shape"], r["mesh"]) == (QWEN, "decode_32k", "single"))
+    hrec = next(r for r in host if (r["arch"], r["shape"]) == (QWEN, "decode_32k"))
+    check(rec["dot_flops"] * rec["n_devices"] == hrec["dot_flops"],
+          f"qwen decode_32k: dot FLOPs {rec['dot_flops']} x {rec['n_devices']} != the host's {hrec['dot_flops']}")
+    n, act = cfg.n_layers, 128 // 16 * cfg.d_model * 2
+    c = rec["collectives"]
+    want = {"all-reduce": (2 * n + 1, (2 * n + 1) * act), "all-gather": (2 * n, 2 * n * cfg.d_model * 2)}
+    for kind in c["counts"]:
+        got = (c["counts"][kind], c["result_bytes"][kind])
+        check(got == want.get(kind, (0, 0)), f"qwen decode_32k {kind}: {got}, Megatron's {want.get(kind, (0, 0))}")
+    return dict(dot_flops_per_device=rec["dot_flops"], host_dot_flops=hrec["dot_flops"], n_devices=rec["n_devices"],
+                all_reduce=want["all-reduce"], all_gather=want["all-gather"])
 
 
 def tuned_shapes() -> list[tuple[str, int, int, int, str]]:
@@ -3695,9 +3732,12 @@ def analysis_phase(dev, smi: str, served_qwen: dict) -> dict[str, int]:
     plan and a default one ft_plan, each bitwise its direct call.
     dryrun — qwen1.5-0.5b and granite-moe-3b-a800m at every applicable cell
     and each other family at decode_32k, traced in ANALYSIS_WORKERS
-    processes: status ok, each cell's trace seconds; the specs-only records
-    of all ten configs on 16 x 16 and 2 x 16 x 16, every spec dividing its
-    dimension, each config's argument bytes per device.  probes — qwen at
+    processes on the host mesh and, sharded on DTensors of a fake process
+    group, on 16 x 16 and 2 x 16 x 16 (dryrun_sharded, :func:`sharded_checks`):
+    status ok, each cell's trace seconds, per-device costs and collectives;
+    specs — all ten configs' every cell on both meshes, every spec dividing
+    its dimension, each cell's argument bytes per device, which every traced
+    record's arguments equal.  probes — qwen at
     train_4k and decode_32k, the reconstruction equal to the dry run's
     direct count within PROBE_TOL.  roofline — the dry-run records' table,
     and the served qwen decode step's bound beside its measured captured
@@ -3710,6 +3750,7 @@ def analysis_phase(dev, smi: str, served_qwen: dict) -> dict[str, int]:
     from repro_torch.kernels import autotune
     from repro_torch.kernels.ft_matmul import ft_matmul, ft_plan
     from repro_torch.launch import dryrun, probes, roofline
+    from repro_torch.launch.mesh import make_production_mesh
 
     shapes = tuned_shapes()
     tune_dir = tempfile.mkdtemp(prefix="chip_smoke_autotune-")
@@ -3734,12 +3775,14 @@ def analysis_phase(dev, smi: str, served_qwen: dict) -> dict[str, int]:
               timer="20 calls captured as one CUDA graph, CUDA events around a replay, min of 5; weights cycled past the L2",
               card=smi)
 
-        tasks = [(a, c.name) for a in ARCH_IDS for c in applicable_cells(get_config(a))
+        cells = [(a, c.name) for a in ARCH_IDS for c in applicable_cells(get_config(a))
                  if a in DRYRUN_ALL_CELLS or c.name == "decode_32k"]
-        tasks.sort(key=lambda t: t[1] != "train_4k")  # the longest traces first
+        tasks = [(a, s, mk) for a, s in cells for mk in ("host", "single", "multi")]
+        # the longest traces first (granite-moe's sharded train_4k), one a worker at a time
+        tasks.sort(key=lambda t: (t[1] != "train_4k", t[1] != "prefill_32k", t[0] != GRANITE, t[2] == "host"))
         t0 = time.perf_counter()
         with mp.get_context("spawn").Pool(ANALYSIS_WORKERS, initializer=_dryrun_worker_init) as pool:
-            pending = pool.map_async(_dryrun_cell, tasks)
+            pending = pool.map_async(_dryrun_cell, tasks, chunksize=1)
             # beside the dry runs: the candidate plans' checks, the contexts, the specs and the probes
             max_err = autotune_checks(dev, shapes, cache)
             contexts = auto_context_checks(dev, shapes, cache)
@@ -3749,16 +3792,14 @@ def analysis_phase(dev, smi: str, served_qwen: dict) -> dict[str, int]:
             specs = {}
             for a in ARCH_IDS:
                 for mk in ("single", "multi"):
-                    for cell in applicable_cells(get_config(a)):
-                        rec = dryrun.run_cell(a, cell.name, mk, verbose=False)
-                        check(rec["status"] == "specs_only", f"{a} {cell.name} {mk}: {rec['status']}")
+                    mesh = make_production_mesh(multi_pod=mk == "multi")
+                    for cell in applicable_cells(get_config(a)):  # raises if a spec does not divide its dim
+                        rec = dryrun.spec_record({}, get_config(a), cell, mesh)
                         specs.setdefault(a, {}).setdefault(mk, {})[cell.name] = rec["argument_bytes_per_device"]
-            phase("specs_only", meshes={"single": [16, 16], "multi": [2, 16, 16]}, profile="tp", opt="zero1",
-                  argument_bytes_per_device=specs)
             probed = {s: probes.probe_cell(get_config(QWEN), SHAPES[s]) for s in ("train_4k", "decode_32k")}
             served = probes.probe_cell(get_config(QWEN), ShapeCell(*SERVED_DECODE), serve_bf16=True, hyca=True,
                                        direct=True)
-            records = pending.get()
+            all_records = pending.get()
         dry_s = time.perf_counter() - t0
     finally:
         autotune.reset_cache()
@@ -3769,8 +3810,33 @@ def analysis_phase(dev, smi: str, served_qwen: dict) -> dict[str, int]:
         import shutil
 
         shutil.rmtree(tune_dir, ignore_errors=True)
-    bad = [(r["arch"], r["shape"], r.get("error")) for r in records if r["status"] != "ok"]
+    bad = [(r["arch"], r["shape"], r["mesh"], r.get("error")) for r in all_records if r["status"] != "ok"]
     check(not bad, f"dry run: {bad}")
+    records = [r for r in all_records if r["mesh"] == "host"]
+    sharded = [r for r in all_records if r["mesh"] != "host"]
+    for r in sharded:  # a traced record's arguments are what its specs give a device
+        want = specs[r["arch"]][r["mesh"]][r["shape"]]
+        check(r["argument_bytes_per_device"] == want and r["memory_analysis"]["argument_size_in_bytes"] == sum(
+            want.values()), f"{r['arch']} {r['shape']} {r['mesh']}: argument bytes {r['memory_analysis']} vs {want}")
+    phase("specs", meshes={"single": [16, 16], "multi": [2, 16, 16]}, profile="tp", opt="zero1",
+          traced=len(sharded), argument_bytes_per_device=specs)
+    megatron = sharded_checks(sharded, records)
+    sharded_rows = {f"{r['arch']}/{r['shape']}/{r['mesh']}": roofline.analyse_record(r) for r in sharded}
+    phase("dryrun_sharded", cells=len(sharded), workers=ANALYSIS_WORKERS, seconds_with_host_cells=dry_s,
+          trace_s={k: r["trace_s"] for k, r in zip(sharded_rows, sharded)},
+          flops={k: r["cost_analysis"]["flops"] for k, r in zip(sharded_rows, sharded)},
+          bytes_accessed={k: r["cost_analysis"]["bytes accessed"] for k, r in zip(sharded_rows, sharded)},
+          collectives={k: {c: n for c, n in r["collectives"]["counts"].items() if n} for k, r in
+                       zip(sharded_rows, sharded)},
+          wire_bytes={k: r["collectives"]["total_wire_bytes"] for k, r in zip(sharded_rows, sharded)},
+          collective_ms={k: row["collective_s"] * 1e3 for k, row in sharded_rows.items()},
+          memory_analysis={k: r["memory_analysis"] for k, r in zip(sharded_rows, sharded)},
+          qwen_decode_single=megatron, card=smi)
+    left = [f"{a}/{c.name}" for a in ARCH_IDS for c in applicable_cells(get_config(a))
+            if (a, c.name) not in cells]
+    print(f"dryrun_sharded: left to `python -m repro_torch.launch.dryrun --mesh both`, on both meshes: "
+          f"{', '.join(left)} (reason: trace seconds; a config's train_4k and prefill_32k trace in 5-3195 s "
+          "on the host, PERF.md section 5, and sharded ~1.5-2x that)", flush=True)
     phase("dryrun", mesh="host", cells=len(records), workers=ANALYSIS_WORKERS, seconds=dry_s,
           trace_s={f"{r['arch']}/{r['shape']}": r["trace_s"] for r in records},
           flops={f"{r['arch']}/{r['shape']}": r["cost_analysis"]["flops"] for r in records},
@@ -3791,6 +3857,8 @@ def analysis_phase(dev, smi: str, served_qwen: dict) -> dict[str, int]:
                                                "wire_bytes": r["collectives"]["total_wire_bytes"]}})
             for r in records]
     print(roofline.to_markdown(rows), flush=True)
+    print(roofline.to_markdown([{**row, "arch": f"{row['arch']} ({r['mesh']})"} for r, row in
+                                zip(sharded, sharded_rows.values())]), flush=True)
     srow = roofline.analyse_record({**served, "arch": QWEN, "shape": SERVED_DECODE[0], "status": "ok"},
                                    cell=ShapeCell(*SERVED_DECODE))
     step_ms = float(np.median(served_qwen["captured"]["step_ms_median"]))

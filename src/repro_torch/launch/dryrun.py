@@ -1,24 +1,30 @@
 """Dry run: trace every (architecture × input-shape × mesh) cell without
 allocating a byte.
 
-On the ``host`` mesh (one device, the port's default) each cell's step is
-traced on ``meta`` tensors of the full width
+Each cell's step is traced on ``meta`` tensors of the full width
 (:func:`repro_torch.launch.probes.step_fn`: the fused prefill, the decode
 step, the train step) and the record holds what the reference's compiled
 cell reports: ``cost_analysis`` (FLOPs, bytes accessed: an unfused eager
-count, :mod:`repro_torch.launch.hlo_stats`), ``collectives`` (all zero on
-one device), ``op_histogram`` and ``memory_analysis``, whose argument and
-output bytes are the exact sizes of the step's inputs and outputs.  The
-trace keeps no temporaries, so there is no ``temp_size_in_bytes``.
+count, :mod:`repro_torch.launch.hlo_stats`), ``collectives``,
+``op_histogram`` (and ``dot_flops``, the matmuls' share of the FLOPs) and
+``memory_analysis``, whose argument and output bytes
+are the exact sizes of the step's inputs and outputs.  The trace keeps no
+temporaries, so there is no ``temp_size_in_bytes``.
 
-On the production meshes (``single``: 16 × 16, ``multi``: 2 × 16 × 16) the
-port has no sharded step yet (ROADMAP A), so the record is
-``"status": "specs_only"``: the spec trees of params (Megatron TP),
-optimizer state (ZeRO-1) and inputs, each spec checked to divide its
-dimension, and the argument bytes one device holds under them.
+On the ``host`` mesh (one device) the collectives are all zero.  On the
+production meshes (``single``: 16 × 16, ``multi``: 2 × 16 × 16) the step
+runs on DTensors of a ``fake`` process group
+(:func:`~repro_torch.launch.mesh.fake_device_mesh`): params by the Megatron
+TP specs, optimizer state by ZeRO-1, inputs and cache by their specs, and
+every figure is one device's, as in the reference's SPMD module:
+FLOPs and bytes of its local shards, the collectives with their real group
+sizes, its argument and output bytes.  The record also keeps the spec trees
+(``specs``, each spec checked to divide its dimension) and the argument
+bytes they give one device (``argument_bytes_per_device``), which the
+traced ``argument_size_in_bytes`` must equal.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --mesh host
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --mesh single
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --mesh both
 """
 from __future__ import annotations
 
@@ -34,8 +40,8 @@ from torch.utils._pytree import tree_leaves
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.shapes import SHAPES, applicable, input_shardings, input_specs
 from repro_torch.dist.sharding import axis_sizes, local_bytes, param_specs, spec_axes, use_mesh, zero1_specs
-from repro_torch.launch.hlo_stats import collective_stats, op_histogram
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.launch.hlo_stats import collective_stats, dot_flops, op_histogram
+from repro_torch.launch.mesh import fake_device_mesh, make_host_mesh, make_production_mesh
 from repro_torch.launch.probes import meta_params, trace_step
 
 OUT_DIR = "experiments/bench_torch/dryrun"
@@ -47,7 +53,11 @@ def _fmt_bytes(b):
 
 
 def _nbytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+    """Bytes one device holds of a tree: a DTensor's local shard."""
+    def local(t):
+        return t._local_tensor if hasattr(t, "_local_tensor") else t
+
+    return sum(local(t).numel() * local(t).element_size() for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
 
 
 def _flat_specs(tree, path: str = "") -> dict:
@@ -90,7 +100,11 @@ def check_divides(tree, spec_tree, mesh, what: str) -> None:
     walk(tree, spec_tree, "")
 
 
-def _specs_only(rec: dict, cfg, cell, mesh) -> dict:
+def spec_record(rec: dict, cfg, cell, mesh) -> dict:
+    """``rec`` with the cell's spec trees (params by Megatron TP, inputs,
+    and for a train cell the optimizer state by ZeRO-1), each spec checked
+    to divide its dimension, and the argument bytes one device holds under
+    them (``argument_bytes_per_device``)."""
     params = meta_params(cfg)
     pspecs = param_specs(params, mesh)
     inputs = input_specs(cfg, cell)
@@ -107,35 +121,40 @@ def _specs_only(rec: dict, cfg, cell, mesh) -> dict:
         specs["opt"] = {"m": _flat_specs(ospecs), "v": _flat_specs(ospecs), "step": [], "gnorm": []}
     rec["specs"] = specs
     rec["argument_bytes_per_device"] = per_dev
-    rec["memory_analysis"] = {"argument_size_in_bytes": sum(per_dev.values())}
-    rec["status"] = "specs_only"
     return rec
 
 
 def run_cell(arch: str, shape: str, mesh_kind: str = "host", *, n_micro: int = 8, verbose: bool = True) -> dict:
+    """The record of one cell (see the module's docstring)."""
     if mesh_kind not in MESH_KINDS:
         raise ValueError(f"unknown mesh kind {mesh_kind!r}; known: {MESH_KINDS}")
     cfg = get_config(arch)
     cell = SHAPES[shape]
     if not applicable(cfg, cell):
         return {"arch": arch, "shape": shape, "mesh": mesh_kind, "status": "skipped"}
-    mesh = make_host_mesh(device="cpu") if mesh_kind == "host" else make_production_mesh(
-        multi_pod=mesh_kind == "multi")
-    rec = {"arch": arch, "shape": shape, "mesh": mesh_kind, "n_devices": mesh.size}
+    n_micro = n_micro if cell.kind == "train" else 1
     t0 = time.perf_counter()
-    with use_mesh(mesh):
-        if mesh_kind != "host":
-            rec = _specs_only(rec, cfg, cell, mesh)
-            rec["specs_s"] = round(time.perf_counter() - t0, 3)
-            if verbose:
-                print(f"  specs only: argument bytes per device "
-                      f"{ {k: _fmt_bytes(v) for k, v in rec['argument_bytes_per_device'].items()} }")
-            return rec
-        trace, args, out, _ = trace_step(cfg, cell, n_micro=n_micro if cell.kind == "train" else 1)
+    if mesh_kind == "host":
+        mesh = make_host_mesh(device="cpu")
+        rec = {"arch": arch, "shape": shape, "mesh": mesh_kind, "n_devices": mesh.size}
+        with use_mesh(mesh):
+            trace, args, out, _ = trace_step(cfg, cell, n_micro=n_micro)
+    else:
+        spec = make_production_mesh(multi_pod=mesh_kind == "multi")
+        rec = spec_record({"arch": arch, "shape": shape, "mesh": mesh_kind, "n_devices": spec.size}, cfg, cell, spec)
+        rec["specs_s"] = round(time.perf_counter() - t0, 3)
+        t0 = time.perf_counter()
+        with fake_device_mesh(spec) as mesh:
+            trace, args, out, _ = trace_step(cfg, cell, n_micro=n_micro, mesh=mesh)
     rec["trace_s"] = round(time.perf_counter() - t0, 3)
     rec["memory_analysis"] = {"argument_size_in_bytes": _nbytes(args), "output_size_in_bytes": _nbytes(out)}
+    if "argument_bytes_per_device" in rec and rec["memory_analysis"]["argument_size_in_bytes"] != sum(
+            rec["argument_bytes_per_device"].values()):
+        raise RuntimeError(f"{arch} {shape} {mesh_kind}: the traced step's arguments hold "
+                             f"{rec['memory_analysis']['argument_size_in_bytes']} bytes a device, its specs "
+                             f"{rec['argument_bytes_per_device']}")
     rec["cost_analysis"] = {"flops": float(trace.flops), "bytes accessed": float(trace.bytes)}
-    cs = collective_stats(trace, mesh.size)
+    cs = collective_stats(trace, rec["n_devices"])
     rec["collectives"] = {
         "counts": cs.counts,
         "result_bytes": cs.result_bytes,
@@ -143,11 +162,15 @@ def run_cell(arch: str, shape: str, mesh_kind: str = "host", *, n_micro: int = 8
         "total_wire_bytes": cs.total_wire_bytes,
     }
     rec["op_histogram"] = op_histogram(trace)
+    rec["dot_flops"] = float(dot_flops(trace))
     rec["n_ops"] = len(trace.records)
     rec["status"] = "ok"
     if verbose:
         print(f"  memory_analysis: { {k: _fmt_bytes(v) for k, v in rec['memory_analysis'].items()} }")
         print(f"  cost_analysis: flops={trace.flops:.3e} bytes={trace.bytes:.3e}  trace {rec['trace_s']} s")
+        if mesh_kind != "host":
+            print(f"  collectives: { {k: v for k, v in cs.counts.items() if v} } "
+                  f"wire={_fmt_bytes(int(cs.total_wire_bytes))}")
     return rec
 
 
@@ -156,7 +179,7 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
     ap.add_argument("--mesh", default="host", choices=[*MESH_KINDS, "both", "all"],
-                    help="host (default; traced), single / multi (specs only), both = single + multi")
+                    help="host (default), single / multi (sharded on a fake process group), both = single + multi")
     ap.add_argument("--n-micro", type=int, default=8)
     ap.add_argument("--out-dir", default=OUT_DIR)
     ap.add_argument("--stop-on-fail", action="store_true")
@@ -190,9 +213,8 @@ def main(argv=None) -> int:
                 with open(os.path.join(args.out_dir, tag + ".json"), "w") as f:
                     json.dump(rec, f, indent=1)
     ok = sum(r["status"] == "ok" for r in results)
-    so = sum(r["status"] == "specs_only" for r in results)
     sk = sum(r["status"] == "skipped" for r in results)
-    print(f"\n[dryrun] {ok} ok, {so} specs only, {sk} skipped, {failed} failed / {len(results)} cells")
+    print(f"\n[dryrun] {ok} ok, {sk} skipped, {failed} failed / {len(results)} cells")
     return 1 if failed else 0
 
 

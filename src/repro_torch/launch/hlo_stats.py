@@ -20,14 +20,25 @@ included, so a full-width step is counted without storage:
   * every ``_c10d_functional`` / ``c10d_functional`` collective, with its
     result bytes and group size, which :func:`collective_stats` turns into
     ring wire bytes per device with the reference's factors.
+
+On DTensors the trace counts what one device does, as the reference's
+compiled SPMD module does.  It lets DTensor dispatch an op first (it returns
+``NotImplemented`` for it, as ``CommDebugMode`` does), so it records the ops
+DTensor runs on the local shards: FLOPs and bytes of each device's part,
+and every collective, those a redistribution issues inside an op's own
+dispatch included.  DTensor's own bookkeeping is left out: the sharding
+propagation's global-shape runs on ``FakeTensor``s, and the index
+arithmetic on tensors of another device than the local shards' (on the
+``meta`` mesh of the dry run, host tensors).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 _COLLECTIVES = (
@@ -87,7 +98,7 @@ class OpRecord:
 
 
 # ops that alias their input without the schema saying so
-_NO_COPY = ("_unsafe_view", "alias", "lift_fresh")
+_NO_COPY = ("_unsafe_view", "alias", "lift_fresh", "wait_tensor", "_wrap_tensor_autograd")
 # gathers: they read the rows they return
 _GATHERS = ("index", "index_select", "gather", "embedding", "take")
 
@@ -96,22 +107,38 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _moved(func, args, kwargs, out) -> int:
-    """The bytes an op moves (see the module's docstring)."""
+def _moved(func, args, kwargs, ins: list[torch.Tensor], outs: list[torch.Tensor]) -> int:
+    """The bytes an op moves (see the module's docstring); ``ins`` and
+    ``outs`` are its tensor inputs and outputs."""
     name = func._overloadpacket.__name__
     if func.is_view or name in _NO_COPY:
         return 0
-    outs = sum(_nbytes(t) for t in _tensors(out))
+    out_bytes = sum(_nbytes(t) for t in outs)
     if name in _GATHERS:
         idx = sum(_nbytes(t) for t in _tensors((args[1:], kwargs)) if not t.is_floating_point())
-        return 2 * outs + idx
+        return 2 * out_bytes + idx
     if name.endswith("_") and (name.startswith(("index_put", "scatter", "index_copy", "index_add", "_index_put"))):
         return 2 * sum(_nbytes(t) for t in _tensors((args[1:], kwargs)))
-    return sum(_nbytes(t) for t in _tensors((args, kwargs))) + outs
+    return sum(_nbytes(t) for t in ins) + out_bytes
 
 
 def _tensors(tree) -> list[torch.Tensor]:
-    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    """The tensors of an op's arguments or outputs (nested tuples, lists and
+    dicts), in order; a hand-rolled walk, it runs for every op traced."""
+    found: list[torch.Tensor] = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            found.append(x)
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                walk(y)
+        elif isinstance(x, dict):
+            for y in x.values():
+                walk(y)
+
+    walk(tree)
+    return found
 
 
 def _group_size(func, args, kwargs) -> int | None:
@@ -128,25 +155,51 @@ def _group_size(func, args, kwargs) -> int | None:
     return None
 
 
+@functools.cache
+def _dtensor_class():
+    if not torch.distributed.is_available():
+        return None
+    from torch.distributed.tensor import DTensor
+
+    return DTensor
+
+
 class OpTrace(TorchDispatchMode):
-    """Records every aten op run under it as an :class:`OpRecord`."""
+    """Records every aten op run under it as an :class:`OpRecord`; on
+    DTensors, every op one device runs (see the module's docstring)."""
 
     def __init__(self):
         super().__init__()
         self.records: list[OpRecord] = []
+        self._local_device: torch.device | None = None  # the local shards' device, once a DTensor is seen
+
+    def _bookkeeping(self, tensors: list[torch.Tensor]) -> bool:
+        if any(isinstance(t, FakeTensor) for t in tensors):
+            return True
+        dev = self._local_device
+        return dev is not None and bool(tensors) and all(t.device != dev for t in tensors)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        dt = _dtensor_class()
+        if dt is not None and any(issubclass(t, dt) for t in types):
+            if self._local_device is None:
+                self._local_device = next(a for a in _tensors((args, kwargs))
+                                          if isinstance(a, dt))._local_tensor.device
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        ins, outs = _tensors((args, kwargs)), _tensors(out)
+        if self._bookkeeping(ins + outs):
+            return out
         packet = func._overloadpacket
         formula = flop_registry.get(packet)
         flops = int(formula(*args, **kwargs, out_val=out)) if formula is not None else 0
-        moved = _moved(func, args, kwargs, out)
+        moved = _moved(func, args, kwargs, ins, outs)
         kind = group = None
         if func.namespace in _C10D_NAMESPACES and packet.__name__ in _C10D_KINDS:
             kind = _C10D_KINDS[packet.__name__]
             group = _group_size(func, args, kwargs)
-            moved = sum(_nbytes(t) for t in _tensors(out))  # the result's bytes
+            moved = sum(_nbytes(t) for t in outs)  # the result's bytes
         self.records.append(OpRecord(str(func), packet.__name__, flops, moved, kind, group))
         return out
 
@@ -210,6 +263,11 @@ _HIST_OPS = {
 
 def _matches(op: str, pats: tuple[str, ...]) -> bool:
     return any(op.startswith(p[:-1]) if p.endswith("*") else op == p for p in pats)
+
+
+def dot_flops(trace) -> int:
+    """The FLOPs of a trace's matmuls (the histogram's ``dot`` ops)."""
+    return sum(r.flops for r in _records(trace) if _matches(r.op, _HIST_OPS["dot"]))
 
 
 def op_histogram(trace, ops: tuple[str, ...] = tuple(_HIST_OPS)) -> dict:

@@ -33,14 +33,16 @@ first-k dense blocks, and its full depth is ``n_layers`` counted with them;
 the reference scales from ``n_layers - first_k_dense`` and so counts one
 MoE layer fewer than deepseek-moe-16b has (ROADMAP C).
 
-The port has no sharded execution yet, so a probe runs on one device: the
-host mesh, whose collectives are all zero.
+A probe runs on one device, the host mesh, whose collectives are all zero;
+:func:`trace_step` also traces a step sharded on a ``DeviceMesh`` of the
+``fake`` process group, which the dry run's production cells use.
 
     PYTHONPATH=src python -m repro_torch.launch.probes --arch qwen1.5-0.5b --shape decode_32k
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -50,8 +52,8 @@ import traceback
 import numpy as np
 import torch
 
-from repro_torch.configs.shapes import SHAPES, ShapeCell, applicable, input_specs
-from repro_torch.dist.sharding import use_mesh
+from repro_torch.configs.shapes import SHAPES, ShapeCell, applicable, input_shardings, input_specs
+from repro_torch.dist.sharding import distribute, param_specs, use_mesh
 from repro_torch.launch.hlo_stats import _COLLECTIVES, OpTrace, collective_stats
 from repro_torch.models.lm import LMConfig, cast_params, decode_step, forward, init_params
 
@@ -151,55 +153,82 @@ def hyca_context():
 
 
 def step_fn(cfg: LMConfig, cell: ShapeCell, *, n_micro: int = 1, serve_bf16: bool = False,
-            cast_once: bool = False, hyca: bool = False):
+            cast_once: bool = False, hyca: bool = False, mesh=None):
     """``(fn, args)``: the port's step for this cell and its ``meta``
     arguments; ``fn(*args)`` returns the step's outputs.  With ``hyca`` the
     step's context is :func:`hyca_context`'s recorder, available after a call
-    as ``fn.recorder``."""
+    as ``fn.recorder``.
+
+    ``mesh``: a mesh bound to a ``DeviceMesh`` (:func:`~repro_torch.launch.
+    mesh.fake_device_mesh`) to run the step sharded on: the params are
+    DTensors by :func:`~repro_torch.dist.sharding.param_specs`, the inputs
+    and the cache by :func:`~repro_torch.configs.shapes.input_shardings`,
+    the train step's optimizer state by ZeRO-1
+    (:func:`~repro_torch.launch.train.sharded_state`), all on ``meta``.
+    Every output is redistributed to its spec, so no pending sum is left
+    unreduced."""
     if cell.kind != "train" and cast_once:
         raise ValueError("cast_once is a train-step option; prefill and decode steps have no microbatches")
     if cell.kind == "train" and serve_bf16:
         raise ValueError("serve_bf16 is a serving option; the train step keeps f32 masters")
     batch = input_specs(cfg, cell)
     rec = hyca_context() if hyca else None
+    if mesh is not None:
+        batch = distribute(batch, input_shardings(cfg, cell, mesh), mesh)
     if cell.kind == "train":
         from repro_torch.core.engine import HyCAConfig
-        from repro_torch.launch.train import TrainConfig, cli_fault_state, make_train_step
+        from repro_torch.launch.train import (
+            TrainConfig, cli_fault_state, make_sharded_train_step, make_train_step, sharded_state,
+        )
         from repro_torch.optim.adamw import adamw_init
 
         tc = TrainConfig(n_micro=n_micro, cast_once=cast_once, hyca_mode="protected" if hyca else "off")
-        step = make_train_step(cfg, tc, hyca=HyCAConfig(rows=32, cols=32) if hyca else None,
-                               wrap_ftc=(lambda _: rec) if hyca else None)
         params = meta_params(cfg)
-        state = {"params": params, "opt": adamw_init(params)}
-        fault = cli_fault_state(4, 0, device="cpu") if hyca else None
+        if mesh is not None:
+            sharded = make_sharded_train_step(cfg, tc, mesh)
+            state = sharded_state(params, mesh)
 
-        def fn(state, batch):
-            return step(state, batch, fault)
+            def fn(state, batch):
+                return sharded(state, batch)
+        else:
+            step = make_train_step(cfg, tc, hyca=HyCAConfig(rows=32, cols=32) if hyca else None,
+                                   wrap_ftc=(lambda _: rec) if hyca else None)
+            state = {"params": params, "opt": adamw_init(params)}
+            fault = cli_fault_state(4, 0, device="cpu") if hyca else None
+
+            def fn(state, batch):
+                return step(state, batch, fault)
 
         args = (state, batch)
-    elif cell.kind == "prefill":
-        def fn(params, batch):
-            with torch.no_grad():
-                return forward(params, cfg, batch, ftc=rec, last_only=True)
-
-        args = (meta_params(cfg, torch.bfloat16 if serve_bf16 else None), batch)
-    elif cell.kind == "decode":
-        def fn(params, cache, token):
-            with torch.no_grad():
-                work = params if serve_bf16 else cast_params(params, cfg.dtype)
-                return decode_step(work, cfg, cache, {"token": token}, ftc=rec)
-
-        args = (meta_params(cfg, cfg.dtype if serve_bf16 else None), batch["cache"], batch["token"])
     else:
-        raise ValueError(cell.kind)
+        params = meta_params(cfg, (torch.bfloat16 if serve_bf16 else None) if cell.kind == "prefill"
+                             else (cfg.dtype if serve_bf16 else None))
+        if mesh is not None:
+            params = distribute(params, param_specs(params, mesh), mesh)
+        ctx = (lambda: use_mesh(mesh)) if mesh is not None else contextlib.nullcontext
+        if cell.kind == "prefill":
+            def fn(params, batch):
+                with torch.no_grad(), ctx():
+                    return forward(params, cfg, batch, ftc=rec, last_only=True)
+
+            args = (params, batch)
+        elif cell.kind == "decode":
+            def fn(params, cache, token):
+                with torch.no_grad(), ctx():
+                    work = params if serve_bf16 else cast_params(params, cfg.dtype)
+                    return decode_step(work, cfg, cache, {"token": token}, ftc=rec)
+
+            args = (params, batch["cache"], batch["token"])
+        else:
+            raise ValueError(cell.kind)
     fn.recorder = rec
     return fn, args
 
 
 def trace_step(cfg: LMConfig, cell: ShapeCell, **kw) -> tuple[OpTrace, tuple, object, object]:
     """``(trace, args, outputs, recorder)`` of one step of this cell on
-    ``meta`` (:func:`step_fn`'s keywords)."""
+    ``meta`` (:func:`step_fn`'s keywords); on a ``mesh``, the trace counts
+    what one device runs (:class:`~repro_torch.launch.hlo_stats.OpTrace`)."""
     fn, args = step_fn(cfg, cell, **kw)
     with OpTrace() as trace:
         out = fn(*args)
@@ -229,8 +258,8 @@ def probe_cell(
     """Per-step totals for one (arch × shape) cell, reconstructed from
     reduced-depth probes; ``direct`` also traces the full-depth step and
     records its count and the reconstruction's relative error.  ``mesh``:
-    a one-device mesh (None: the host mesh); the port has no sharded step,
-    so a larger mesh raises.  On one device every ``profile`` is the same
+    a one-device mesh (None: the host mesh); a larger mesh raises, since a
+    sharded step is traced whole by the dry run (``trace_step(mesh=...)``).  On one device every ``profile`` is the same
     program; it is recorded."""
     from repro_torch.dist.sharding import PROFILE_RULES
 
@@ -239,8 +268,8 @@ def probe_cell(
     n_dev = 1 if mesh is None else int(math.prod(mesh.shape))
     if n_dev != 1:
         raise NotImplementedError(
-            f"a {tuple(mesh.shape)} mesh: the port has no sharded step yet (ROADMAP A), so its probes run on "
-            "one device; pass the host mesh")
+            f"a {tuple(mesh.shape)} mesh: the probes reconstruct a step on one device and probe no sharded "
+            "step; trace one with launch/dryrun.py (run_cell on 'single' or 'multi')")
     depths, l_full = _probe_layers(arch_cfg)
     kw = dict(serve_bf16=serve_bf16, cast_once=cast_once, hyca=hyca)
     micros = [1]

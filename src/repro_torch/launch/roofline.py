@@ -6,9 +6,11 @@
 
 All three use per-device quantities from the cost probes
 (:mod:`repro_torch.launch.probes`; FLOPs and bytes are counts of the
-port's eager step on ``meta`` tensors, the bytes unfused) and the card's
-constants (:mod:`repro_torch.launch.hw`).  The device count is the probe
-record's mesh (1 on the host mesh).  MODEL_FLOPS is the analytic ideal
+port's eager step on ``meta`` tensors, the bytes unfused) or from a dry-run
+record (:mod:`repro_torch.launch.dryrun`: on the production meshes one
+device's FLOPs, bytes and collective wire bytes), and the card's constants
+(:mod:`repro_torch.launch.hw`).  The device count is the record's mesh (1
+on the host mesh).  MODEL_FLOPS is the analytic ideal
 (6·N_active·D dense-train convention + exact attention terms); MODEL/HLO
 shows remat and redundancy waste, as in the reference.
 
@@ -90,16 +92,24 @@ def _advice(dominant: str, rec: dict, cfg: LMConfig, cell: ShapeCell) -> str:
 
 
 def analyse_record(rec: dict, cfg: LMConfig | None = None, cell: ShapeCell | None = None) -> dict:
-    """One probe record's roofline row.  ``cfg`` and ``cell`` default to the
-    record's ``arch`` and ``shape``; pass them for a cell outside
-    :data:`~repro_torch.configs.shapes.SHAPES` (a served step's)."""
+    """One probe or dry-run record's roofline row.  ``cfg`` and ``cell``
+    default to the record's ``arch`` and ``shape``; pass them for a cell
+    outside :data:`~repro_torch.configs.shapes.SHAPES` (a served step's).
+    A dry-run record's ``cost_analysis`` and ``collectives`` are one
+    device's: its ``total_wire_bytes`` is the collective term, over
+    ``NVLINK_BW``, as the reference reads its compiled record's over its
+    interconnect."""
     if rec.get("status") != "ok":
         return rec
     arch, shape = rec["arch"], rec["shape"]
     cfg = get_config(arch) if cfg is None else cfg
     cell = SHAPES[shape] if cell is None else cell
     n_dev = int(rec.get("n_devices", 1))
-    t = rec["total"]
+    if "total" in rec:
+        t = rec["total"]
+    else:
+        t = {"flops": rec["cost_analysis"]["flops"], "bytes": rec["cost_analysis"]["bytes accessed"],
+             "wire_bytes": rec["collectives"]["total_wire_bytes"]}
     terms = {
         "compute": max(t["flops"], 0.0) / PEAK_FLOPS_BF16,
         "memory": max(t["bytes"], 0.0) / HBM_BW,

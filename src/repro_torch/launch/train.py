@@ -1,4 +1,6 @@
-"""The training step and its CLI driver, on one device.
+"""The training step and its command-line entry point, on one device; and the train step
+sharded on DTensors (:func:`make_sharded_train_step`, ZeRO-1 optimizer
+state), which the dry run traces on the production meshes.
 
 ``make_train_step`` is the reference's train step without a mesh:
 
@@ -26,17 +28,19 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.core.engine import FaultState, HyCAConfig
 from repro_torch.core.ftcontext import FTContext, ProtectPolicy, build_ftcontext
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.models.lm import LMConfig, cast_params, init_params, loss_fn
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.compression import compress, ef_init
 from repro_torch.optim.schedules import cosine_warmup
-from repro_torch.tree import tree_leaves, tree_map, tree_map2
+from repro_torch.tree import stack_tree, tree_leaves, tree_map, tree_map2, unstack_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +155,96 @@ def make_train_step(cfg: LMConfig, tc: TrainConfig, *, hyca: HyCAConfig | None =
         return new_state, metrics
 
     return step
+
+
+def sharded_state(params: Any, mesh) -> dict:
+    """The train state of :func:`make_sharded_train_step` for ``params``
+    (``meta`` or real, in the port's layout) on ``mesh`` (a ``DeviceMesh``
+    or a :class:`~repro_torch.launch.mesh.BoundMesh`): the params as DTensors by their specs, AdamW's ``m`` and
+    ``v`` in the reference's stacked layout (:func:`~repro_torch.tree.
+    stack_tree`) by the ZeRO-1 specs, ``step`` and ``gnorm`` replicated.
+    ZeRO-1 puts the data axes on the layer axis of some small stacked
+    leaves (norm scales, RWKV's ``mu``), which a per-layer tensor cannot
+    hold; a stacked leaf can, so each device holds the optimizer bytes
+    ``local_bytes(params, zero1_specs(...))`` counts."""
+    from repro_torch.dist.sharding import distribute, param_specs, stacked_specs, zero1_specs
+
+    opt = adamw_init(params)
+    ospecs = stacked_specs(zero1_specs(params, mesh))
+    return {"params": distribute(params, param_specs(params, mesh), mesh),
+            "opt": {"m": distribute(stack_tree(opt["m"]), ospecs, mesh),
+                    "v": distribute(stack_tree(opt["v"]), ospecs, mesh),
+                    "step": distribute(opt["step"], (), mesh), "gnorm": distribute(opt["gnorm"], (), mesh)}}
+
+
+def make_sharded_train_step(cfg: LMConfig, tc: TrainConfig, mesh):
+    """``step(state, batch) -> (state, metrics)`` on DTensors of ``mesh``:
+    the step of :func:`make_train_step` without a fault context, mask or
+    compression, with ZeRO-1 optimizer state (:func:`sharded_state`), under
+    the current rules (the tp profile's by default, as the reference's
+    dry run traces its step, ``src/repro/launch/train.py:221``).
+
+    ``batch``: {"tokens", "labels"} (B, S) DTensors, batch over the data
+    axes.  Microbatch ``i`` takes rows ``i, i + n_micro, ...``, so that
+    every device's rows split evenly without a collective (the plain step
+    takes contiguous rows; the step sums the same rows).  Each microbatch's
+    gradients are summed as DTensors (a data-parallel gradient stays a
+    pending sum), reduced once into their ZeRO-1 shards (a reduce-scatter
+    over the data axes), AdamW updates the shards, and the new params are
+    gathered back to their specs.  Every output carries its spec's
+    placements, none a pending sum."""
+    from repro_torch.dist.sharding import param_specs, redistribute, stacked_specs, use_mesh, zero1_specs
+
+    if tc.hyca_mode != "off" or tc.grad_compress_ratio or tc.cast_once:
+        raise ValueError("the sharded train step has no fault context, compression or cast_once")
+
+    def step(state: dict, batch: dict) -> tuple[dict, dict]:
+        params = state["params"]
+        pspecs = param_specs(params, mesh)
+        ospecs = stacked_specs(zero1_specs(params, mesh))
+        with use_mesh(mesh):
+            leaves = tree_map(lambda a: a.detach().requires_grad_(), params)
+            flat = tree_leaves(leaves)
+            micro = {k: v.reshape(v.shape[0] // tc.n_micro, tc.n_micro, *v.shape[1:]) for k, v in batch.items()}
+            gsum = lsum = asum = None
+            for i in range(tc.n_micro):
+                mb = {k: v[:, i] for k, v in micro.items()}
+                loss, metrics = loss_fn(leaves, cfg, mb, aux_weight=tc.aux_weight)
+                grads = [torch.zeros_like(p, dtype=torch.float32) if g is None else g.to(torch.float32)
+                         for p, g in zip(flat, torch.autograd.grad(loss, flat, allow_unused=True))]
+                with torch.no_grad():
+                    gsum = grads if gsum is None else [a + g for a, g in zip(gsum, grads)]
+                    lsum = metrics["loss"].detach() if lsum is None else lsum + metrics["loss"].detach()
+                    asum = metrics["aux"].detach() if asum is None else asum + metrics["aux"].detach()
+            with torch.no_grad():
+                grads = _unflatten(params, [g / tc.n_micro for g in gsum])
+                lr = cosine_warmup(state["opt"]["step"], peak_lr=tc.opt.lr, warmup=tc.warmup,
+                                   total=tc.total_steps)
+                g_o = redistribute(stack_tree(grads), ospecs, mesh)
+                p_o = redistribute(stack_tree(params), ospecs, mesh)
+                new_p, new_opt = adamw_update(g_o, state["opt"], p_o, tc.opt, lr)
+                new_params = unstack_tree(redistribute(new_p, stacked_specs(pspecs), mesh), params)
+                metrics = {"loss": lsum / tc.n_micro, "aux": asum / tc.n_micro, "lr": lr, "gnorm": new_opt["gnorm"]}
+                metrics = {k: redistribute(v, (), mesh) if is_dtensor(v) else v for k, v in metrics.items()}
+                new_opt["gnorm"] = metrics["gnorm"]
+        return {**state, "params": new_params, "opt": new_opt}, metrics
+
+    return step
+
+
+def _unflatten(like, flat: list):
+    """``flat`` (tensors in :func:`tree_leaves` order) in ``like``'s
+    structure."""
+    it = iter(flat)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        return next(it)
+
+    return walk(like)
 
 
 # --------------------------------------------------------------------------- #

@@ -12,7 +12,10 @@ import dataclasses
 import torch
 
 from repro_torch.core.ftcontext import site_matmul
-from repro_torch.models.layers import Params, apply_rope, dense_init, rmsnorm, rmsnorm_init
+from repro_torch.dist.sharding import einsum, is_dtensor, shard
+from repro_torch.models.layers import (
+    Params, apply_rope, dense_init, merge_heads, rmsnorm, rmsnorm_init, split_heads,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,9 +56,9 @@ def _qkv(x, p, cfg: AttnConfig, positions, ftc=None):
     v = mm(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv, hd)
-    v = v.reshape(b, s, cfg.n_kv, hd)
+    q = split_heads(q, cfg.n_heads, hd)
+    k = split_heads(k, cfg.n_kv, hd, "kv_heads")
+    v = split_heads(v, cfg.n_kv, hd, "kv_heads")
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -63,7 +66,7 @@ def _qkv(x, p, cfg: AttnConfig, positions, ftc=None):
 
 def _grouped_scores(qb, k, scale):
     """qb: (B,qb,Hk,G,D), k: (B,S,Hk,D) -> (B,qb,Hk,G,S) fp32."""
-    return torch.einsum("bqhgd,bshd->bqhgs", qb.to(torch.float32), k.to(torch.float32)) * scale
+    return einsum("bqhgd,bshd->bqhgs", qb.to(torch.float32), k.to(torch.float32)) * scale
 
 
 def blockwise_causal_attention(q, k, v, n_kv: int, q_block: int) -> torch.Tensor:
@@ -78,6 +81,9 @@ def blockwise_causal_attention(q, k, v, n_kv: int, q_block: int) -> torch.Tensor
     qb = min(q_block, s)
     if s % qb:
         raise ValueError(f"sequence length {s} is not a multiple of the query block {qb}")
+    # grouped by KV head: on DTensors the heads stay sharded only where the
+    # KV heads divide the mesh axis too
+    q = shard(q, "batch", "seq", "kv_heads", None, dims=(b, s, n_kv, d))
     qr = q.reshape(b, s // qb, qb, n_kv, g, d)
     kpos = torch.arange(s, device=q.device)
     k32, v32 = k.to(torch.float32), v.to(torch.float32)
@@ -89,7 +95,7 @@ def blockwise_causal_attention(q, k, v, n_kv: int, q_block: int) -> torch.Tensor
         mask = kpos[None, :] <= qpos[:, None]  # (qb, S)
         sc = torch.where(mask[None, :, None, None, :], sc, neg)
         wts = torch.softmax(sc, dim=-1)
-        outs.append(torch.einsum("bqhgs,bshd->bqhgd", wts, v32).to(q.dtype))
+        outs.append(einsum("bqhgs,bshd->bqhgd", wts, v32).to(q.dtype))
     return torch.stack(outs, dim=1).reshape(b, s, hq, d)
 
 
@@ -101,7 +107,8 @@ def gqa_forward(x, p, cfg: AttnConfig, positions=None, ftc=None) -> torch.Tensor
         positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _qkv(x, p, cfg, positions, ftc)
     out = blockwise_causal_attention(q, k, v, cfg.n_kv, cfg.q_block)
-    return site_matmul(ftc, "attn.out")(out.reshape(b, s, cfg.n_heads * cfg.hd), p["wo"])
+    out = site_matmul(ftc, "attn.out")(merge_heads(out), p["wo"])
+    return shard(out, "batch", "seq", "embed")  # the reference's attention.py:114
 
 
 def _write_rows(bidx: torch.Tensor, idx: torch.Tensor, *pairs: tuple[torch.Tensor, torch.Tensor]) -> None:
@@ -111,11 +118,55 @@ def _write_rows(bidx: torch.Tensor, idx: torch.Tensor, *pairs: tuple[torch.Tenso
     was, as the reference's scatter drops an out-of-bounds write, and no
     index leaves the tensor."""
     smax = pairs[0][0].shape[1]
+    if is_dtensor(pairs[0][0]):
+        for cache, new in pairs:
+            _write_rows_local(idx, cache, new)
+        return
     pos = torch.clamp(idx, max=smax - 1).long()
     keep = idx < smax
     for cache, new in pairs:
         k = keep.view(-1, *([1] * (new.dim() - 1)))
         cache[bidx, pos] = torch.where(k, new.to(cache.dtype), cache[bidx, pos])
+
+
+def _write_rows_local(idx, cache, new) -> None:
+    """:func:`_write_rows` for one DTensor cache ``(B, S, ...)``, on this
+    device's shard, in place: ``new`` ``(B, ...)`` is redistributed to the
+    cache's placements with its length dim dropped, and a slot writes only
+    where its row lies in this shard's length range (the flash-decoding
+    layout shards the length over ``model``).  Its out-of-bounds rule is
+    the plain path's."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, pl = cache.device_mesh, cache.placements
+    smax = cache.shape[1]
+    row_pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else
+                   Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else p for p in pl)
+    idx_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in pl)
+    local = cache.to_local()
+    new_l = new.redistribute(mesh, row_pl).to_local()
+    idx_l = idx.redistribute(mesh, idx_pl).to_local()
+    _, offset = compute_local_shape_and_global_offset(cache.shape, mesh, pl)
+    rows = local.shape[1]
+    rel = idx_l.long() - offset[1]
+    keep = (idx_l < smax) & (rel >= 0) & (rel < rows)
+    pos = torch.clamp(rel, 0, rows - 1)
+    bidx = torch.arange(local.shape[0], device=local.device)
+    k = keep.view(-1, *([1] * (new_l.dim() - 1)))
+    local[bidx, pos] = torch.where(k, new_l.to(local.dtype), local[bidx, pos])
+
+
+def _softmax_over_cache(sc: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last dim, the cache's length.  On a DTensor whose
+    length is sharded (the flash-decoding layout of the cache), by parts:
+    each device's max and sum over its rows, reduced over the mesh, so the
+    scores are never gathered; the plain path is ``torch.softmax``."""
+    if not is_dtensor(sc) or not any(getattr(p, "dim", None) == sc.dim() - 1 for p in sc.placements):
+        return torch.softmax(sc, dim=-1)
+    m = sc.amax(dim=-1, keepdim=True)
+    e = torch.exp(sc - m)
+    return e / e.sum(dim=-1, keepdim=True)
 
 
 def gqa_decode(x, p, cfg: AttnConfig, cache: Params, ftc=None) -> tuple[torch.Tensor, Params]:
@@ -135,15 +186,17 @@ def gqa_decode(x, p, cfg: AttnConfig, cache: Params, ftc=None) -> tuple[torch.Te
     smax = k_cache.shape[1]
     g = cfg.n_heads // cfg.n_kv
     scale = 1.0 / (cfg.hd ** 0.5)
-    qh = q.reshape(b, 1, cfg.n_kv, g, cfg.hd)
+    # the query heads grouped by KV head: on DTensors the heads stay sharded
+    # only where the KV heads divide the mesh axis too
+    qh = shard(q, "batch", None, "kv_heads", None, dims=(b, 1, cfg.n_kv, cfg.hd)).reshape(b, 1, cfg.n_kv, g, cfg.hd)
     sc = _grouped_scores(qh, k_cache, scale)[:, 0]  # (B,Hk,G,S)
     valid = torch.arange(smax, device=x.device)[None, :] <= idx[:, None]  # (B,S)
     sc = torch.where(valid[:, None, None, :], sc, torch.full((), -1e30, device=x.device))
-    wts = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", wts, v_cache.to(torch.float32))
+    wts = _softmax_over_cache(sc)
+    out = einsum("bhgs,bshd->bhgd", wts, v_cache.to(torch.float32))
     out = out.reshape(b, 1, cfg.n_heads * cfg.hd).to(x.dtype)
     idx.add_(1)
-    return site_matmul(ftc, "attn.out")(out, p["wo"]), cache
+    return shard(site_matmul(ftc, "attn.out")(out, p["wo"]), "batch", None, "embed"), cache
 
 
 def gqa_cache_init(cfg: AttnConfig, batch: int, smax: int, dtype=torch.bfloat16, *, device="cuda") -> Params:
@@ -190,7 +243,7 @@ def _mla_qkr(x, p, cfg: MLAConfig, positions, ftc=None):
     b, s, _ = x.shape
     h, dn, dr = cfg.n_heads, cfg.d_nope, cfg.d_rope
     mm = site_matmul(ftc, "attn.qkv")
-    q = mm(rmsnorm(mm(x, p["wq_a"]), p["q_norm"]), p["wq_b"]).reshape(b, s, h, dn + dr)
+    q = split_heads(mm(rmsnorm(mm(x, p["wq_a"]), p["q_norm"]), p["wq_b"]), h, dn + dr)
     q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
     kv_a = mm(x, p["wkv_a"])
     c_kv = rmsnorm(kv_a[..., :cfg.kv_lora], p["kv_norm"])
@@ -207,7 +260,7 @@ def mla_forward(x, p, cfg: MLAConfig, positions=None, ftc=None) -> torch.Tensor:
         positions = torch.arange(s, device=x.device).expand(b, s)
     h, dn, dr, dv = cfg.n_heads, cfg.d_nope, cfg.d_rope, cfg.d_v
     q_nope, q_rope, c_kv, k_rope = _mla_qkr(x, p, cfg, positions, ftc)
-    kv = site_matmul(ftc, "attn.qkv")(c_kv, p["wkv_b"]).reshape(b, s, h, dn + dv)
+    kv = split_heads(site_matmul(ftc, "attn.qkv")(c_kv, p["wkv_b"]), h, dn + dv)
     k_nope32, v32 = kv[..., :dn].to(torch.float32), kv[..., dn:].to(torch.float32)
     k_rope32 = k_rope.to(torch.float32)
     scale = 1.0 / ((dn + dr) ** 0.5)
@@ -220,14 +273,14 @@ def mla_forward(x, p, cfg: MLAConfig, positions=None, ftc=None) -> torch.Tensor:
     for blk in range(s // qb):
         rows = slice(blk * qb, (blk + 1) * qb)
         qpos = blk * qb + torch.arange(qb, device=x.device)
-        sc = (torch.einsum("bqhd,bshd->bqhs", q_nope[:, rows].to(torch.float32), k_nope32)
-              + torch.einsum("bqhd,bsd->bqhs", q_rope[:, rows].to(torch.float32), k_rope32)) * scale
+        sc = (einsum("bqhd,bshd->bqhs", q_nope[:, rows].to(torch.float32), k_nope32)
+              + einsum("bqhd,bsd->bqhs", q_rope[:, rows].to(torch.float32), k_rope32)) * scale
         mask = kpos[None, :] <= qpos[:, None]
         sc = torch.where(mask[None, :, None, :], sc, neg)
         wts = torch.softmax(sc, dim=-1)
-        outs.append(torch.einsum("bqhs,bshd->bqhd", wts, v32).to(x.dtype))
-    out = torch.cat(outs, dim=1).reshape(b, s, h * dv)
-    return site_matmul(ftc, "attn.out")(out, p["wo"])
+        outs.append(einsum("bqhs,bshd->bqhd", wts, v32).to(x.dtype))
+    out = merge_heads(torch.cat(outs, dim=1))
+    return shard(site_matmul(ftc, "attn.out")(out, p["wo"]), "batch", "seq", "embed")
 
 
 def mla_cache_init(cfg: MLAConfig, batch: int, smax: int, dtype=torch.bfloat16, *, device="cuda") -> Params:
@@ -256,17 +309,17 @@ def mla_decode(x, p, cfg: MLAConfig, cache: Params, ftc=None) -> tuple[torch.Ten
     bidx = torch.arange(b, device=x.device)
     c_cache, r_cache = cache["c_kv"], cache["k_rope"]
     _write_rows(bidx, idx, (c_cache, c_kv_new[:, 0]), (r_cache, k_rope_new[:, 0]))
-    wkv_b = p["wkv_b"].reshape(cfg.kv_lora, h, dn + dv)
+    wkv_b = shard(p["wkv_b"], None, "heads", dims=(cfg.kv_lora, h)).reshape(cfg.kv_lora, h, dn + dv)
     w_uk, w_uv = wkv_b[..., :dn].to(torch.float32), wkv_b[..., dn:].to(torch.float32)  # (L,H,dn), (L,H,dv)
-    q_abs = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].to(torch.float32), w_uk)
+    q_abs = einsum("bhd,lhd->bhl", q_nope[:, 0].to(torch.float32), w_uk)
     scale = 1.0 / ((dn + dr) ** 0.5)
     c32 = c_cache.to(torch.float32)
-    sc = (torch.einsum("bhl,bsl->bhs", q_abs, c32)
-          + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].to(torch.float32), r_cache.to(torch.float32))) * scale
+    sc = (einsum("bhl,bsl->bhs", q_abs, c32)
+          + einsum("bhd,bsd->bhs", q_rope[:, 0].to(torch.float32), r_cache.to(torch.float32))) * scale
     valid = torch.arange(c_cache.shape[1], device=x.device)[None, :] <= idx[:, None]
     sc = torch.where(valid[:, None, :], sc, torch.full((), -1e30, device=x.device))
-    wts = torch.softmax(sc, dim=-1)
-    ctx = torch.einsum("bhs,bsl->bhl", wts, c32)
-    out = torch.einsum("bhl,lhd->bhd", ctx, w_uv).reshape(b, 1, h * dv).to(x.dtype)
+    wts = _softmax_over_cache(sc)
+    ctx = einsum("bhs,bsl->bhl", wts, c32)
+    out = shard(einsum("bhl,lhd->bhd", ctx, w_uv), "batch", "heads", None).reshape(b, 1, h * dv).to(x.dtype)
     idx.add_(1)
-    return site_matmul(ftc, "attn.out")(out, p["wo"]), cache
+    return shard(site_matmul(ftc, "attn.out")(out, p["wo"]), "batch", None, "embed"), cache

@@ -16,9 +16,11 @@ import dataclasses
 import torch
 
 from repro_torch.core.ftcontext import site_matmul
+from repro_torch.dist.sharding import einsum, shard
 from repro_torch.models.attention import AttnConfig, gqa_cache_init, gqa_init
 from repro_torch.models.layers import (
-    Params, dense_init, ffn, ffn_init, gelu, layernorm, layernorm_init, sinusoidal_positions,
+    Params, dense_init, ffn, ffn_init, gelu, layernorm, layernorm_init, merge_heads, sinusoidal_positions,
+    split_heads,
 )
 
 
@@ -39,35 +41,32 @@ def cross_attn_init(gen: torch.Generator, cfg: CrossAttnConfig, *, device="cuda"
 
 def _softmax_attn(q, k, v, scale_by: float, dtype) -> torch.Tensor:
     """Full attention in f32, no mask: q (B,S,H,D), k/v (B,T,H,D)."""
-    sc = torch.einsum("bshd,bthd->bhst", q.to(torch.float32), k.to(torch.float32))
+    sc = einsum("bshd,bthd->bhst", q.to(torch.float32), k.to(torch.float32))
     wts = torch.softmax(sc / scale_by, dim=-1)
-    return torch.einsum("bhst,bthd->bshd", wts, v.to(torch.float32)).to(dtype)
+    return einsum("bhst,bthd->bshd", wts, v.to(torch.float32)).to(dtype)
 
 
 def cross_attn(x: torch.Tensor, enc: torch.Tensor, p: Params, cfg: CrossAttnConfig, ftc=None) -> torch.Tensor:
     """x: (B, S, d) queries; enc: (B, T, d) encoder keys and values (no
     mask).  K and V are projected from ``enc`` on every call, on the array."""
-    b, s, d = x.shape
-    t = enc.shape[1]
     h, hd = cfg.n_heads, cfg.hd
     mm = site_matmul(ftc, "attn.qkv")
-    q = mm(x, p["wq"]).reshape(b, s, h, hd)
-    k = mm(enc, p["wk"]).reshape(b, t, h, hd)
-    v = mm(enc, p["wv"]).reshape(b, t, h, hd)
+    q = split_heads(mm(x, p["wq"]), h, hd)
+    k = split_heads(mm(enc, p["wk"]), h, hd)
+    v = split_heads(mm(enc, p["wv"]), h, hd)
     out = _softmax_attn(q, k, v, hd ** 0.5, x.dtype)
-    return site_matmul(ftc, "attn.out")(out.reshape(b, s, d), p["wo"])
+    return shard(site_matmul(ftc, "attn.out")(merge_heads(out), p["wo"]), "batch", "seq", "embed")
 
 
 def _self_attn_bidir(x: torch.Tensor, p: Params, cfg: AttnConfig, ftc=None) -> torch.Tensor:
     """Full bidirectional MHA (the encoder's); no RoPE."""
-    b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
     mm = site_matmul(ftc, "attn.qkv")
-    q = mm(x, p["wq"]).reshape(b, s, h, hd)
-    k = mm(x, p["wk"]).reshape(b, s, h, hd)
-    v = mm(x, p["wv"]).reshape(b, s, h, hd)
+    q = split_heads(mm(x, p["wq"]), h, hd)
+    k = split_heads(mm(x, p["wk"]), h, hd)
+    v = split_heads(mm(x, p["wv"]), h, hd)
     out = _softmax_attn(q, k, v, hd ** 0.5, x.dtype)
-    return site_matmul(ftc, "attn.out")(out.reshape(b, s, h * hd), p["wo"])
+    return shard(site_matmul(ftc, "attn.out")(merge_heads(out), p["wo"]), "batch", "seq", "embed")
 
 
 # --------------------------------------------------------------------------- #

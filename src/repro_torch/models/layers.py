@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.ftcontext import site_matmul
+from repro_torch.dist.sharding import grad_in_place, is_dtensor, shard
 
 Params = dict
 
@@ -38,7 +39,15 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     # x.dtype — the JAX package's order
     var = x.to(torch.float32).square().mean(dim=-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
-    return x * inv * g.to(x.dtype)
+    return x * inv * _replicated(g.to(x.dtype))
+
+
+def _replicated(p: torch.Tensor) -> torch.Tensor:
+    """A norm's scale or bias read whole.  The param specs shard a stacked
+    ``(L, d)`` scale over ``model`` on ``d``; on DTensors the scale is
+    gathered (``d`` elements), so that the activation it multiplies stays
+    replicated and is not gathered before each projection."""
+    return shard(p, None)
 
 
 def layernorm_init(d: int, *, device="cuda") -> Params:
@@ -54,7 +63,7 @@ def layernorm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
     mu = x32.mean(dim=-1, keepdim=True).to(x.dtype)
     var = (x32 - mu.to(torch.float32)).square().mean(dim=-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
-    return (x - mu) * inv * p["g"].to(x.dtype) + p["b"].to(x.dtype)
+    return (x - mu) * inv * _replicated(p["g"].to(x.dtype)) + _replicated(p["b"].to(x.dtype))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -68,7 +77,10 @@ def rope_freqs(head_dim: int, theta: float = 10000.0, *, device="cuda") -> torch
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
-    """x: (..., S, H, D); positions: (..., S).  Runs in f32."""
+    """x: (..., S, H, D); positions: (..., S).  Runs in f32.  On DTensors
+    (under a ``DeviceMesh``'s :func:`~repro_torch.dist.sharding.use_mesh`)
+    the plain ``freqs`` table is read as replicated: ``use_mesh`` runs the
+    model under ``implicit_replication``."""
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, device=x.device)
     ang = positions[..., :, None, None].to(torch.float32) * freqs  # (..., S, 1, D/2)
@@ -88,6 +100,24 @@ def sinusoidal_positions(n: int, d: int, *, device="cuda") -> torch.Tensor:
     return pe
 
 
+def split_heads(x: torch.Tensor, n_heads: int, head_dim: int, axis: str = "heads") -> torch.Tensor:
+    """(B, S, H * D) -> (B, S, H, D).  On a DTensor the projection is first
+    constrained with ``axis`` checked against H: where H does not divide the
+    mesh axis (granite-moe's 24 heads on 16 devices) the resolver's fallback
+    replicates the last dim, so the unflatten is even; where it divides, the
+    column-parallel layout already is that and no collective is issued."""
+    b, s, _ = x.shape
+    x = shard(x, "batch", "seq", axis, dims=(b, s, n_heads))
+    return x.reshape(b, s, n_heads, head_dim)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(..., H, D) -> (..., H * D), the inverse of :func:`split_heads`; on a
+    DTensor its gradient flows back in the heads' own placements
+    (:func:`~repro_torch.dist.sharding.grad_in_place`)."""
+    return grad_in_place(x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1]))
+
+
 def ffn_init(gen: torch.Generator, d: int, d_ff: int, gated: bool = True, *, device="cuda") -> Params:
     p = {"up": dense_init(gen, d, d_ff, device=device), "down": dense_init(gen, d_ff, d, device=device)}
     if gated:
@@ -104,14 +134,21 @@ def ffn(x: torch.Tensor, p: Params, act: Callable = F.silu, ftc=None, site: str 
         h = act(mm(x, p["gate"])) * h
     else:
         h = act(h)
-    return mm(h, p["down"])
+    out = mm(h, p["down"])
+    if out.dim() == 3:  # the row-parallel product's reduction (the reference's layers.py:131)
+        out = shard(out, "batch", "seq", "embed")
+    return out
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token NLL in f32; labels < 0 are masked out."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    if is_dtensor(logits):  # vocab-sharded: each device picks the label's logit from its own columns
+        cols = torch.arange(logits.shape[-1], device=logits.device)
+        ll = torch.where(cols == labels.clamp(min=0).long()[..., None], logits, 0.0).sum(-1)
+    else:
+        ll = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
     return torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
 

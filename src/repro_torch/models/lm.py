@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.core.ftcontext import FTContext, site_matmul
+from repro_torch.dist.sharding import contiguous_strides, is_dtensor, shard
 from repro_torch.models import encdec as ed
 from repro_torch.models.attention import (
     AttnConfig, gqa_cache_init, gqa_decode, gqa_forward, gqa_init, mla_cache_init, mla_decode, mla_forward,
@@ -278,9 +279,10 @@ def forward(
     _require_ported(cfg)
     p = cast_params(params, cfg.dtype)
     tokens = batch["tokens"].long()
-    x = p["embed"][tokens]
+    x = _embed_rows(p["embed"], tokens)
     if cfg.family == "vlm" and "patches" in batch:
         x = splice_patches(x, mm_project(batch["patches"].to(cfg.dtype), p["mm_proj"], ftc))
+    x = shard(x, "batch", "seq", "embed")
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     act = _ACTS[cfg.act]
@@ -292,31 +294,36 @@ def forward(
             return mla_forward(x, lp, cfg.mla, positions, fc)
         return gqa_forward(x, lp, cfg.attn_cfg, positions, fc)
 
+    # each block's output is constrained as the reference's scanned bodies
+    # constrain theirs (lm.py:278, 280, 363)
     def dense_block(x, lp, fc):
         x = x + attn(_norm(x, lp["ln1"], cfg), lp["attn"], fc)
-        return x + ffn(_norm(x, lp["ln2"], cfg), lp["ffn"], act=act, ftc=fc)
+        return shard(x + ffn(_norm(x, lp["ln2"], cfg), lp["ffn"], act=act, ftc=fc), "batch", "seq", "embed")
 
     def moe_block(x, aux, lp, fc):
         x = x + attn(_norm(x, lp["ln1"], cfg), lp["attn"], fc)
         y, ai = moe_forward(_norm(x, lp["ln2"], cfg), lp["moe"], cfg.moe, ftc=fc)
-        return x + y, aux + ai
+        return shard(x + y, "batch", "seq", "embed"), aux + ai
 
     def decoder_block(x, enc, lp, fc):
         x = x + gqa_forward(layernorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, positions, fc)
         x = x + ed.cross_attn(layernorm(x, lp["ln_x"]), enc, lp["xattn"], xcfg, fc)
-        return x + ffn(layernorm(x, lp["ln2"]), lp["ffn"], act=_ACTS["gelu"], ftc=fc)
+        return shard(x + ffn(layernorm(x, lp["ln2"]), lp["ffn"], act=_ACTS["gelu"], ftc=fc),
+                     "batch", "seq", "embed")
 
     def rwkv_block(x, lp, fc):
-        return rwkv6_forward(x, lp, cfg.rwkv, ftc=fc)
+        return shard(rwkv6_forward(x, lp, cfg.rwkv, ftc=fc), "batch", "seq", "embed")
 
     def mamba_block(x, lp, fc):
-        return x + mamba2_forward(_norm(x, lp["ln"], cfg), lp["mamba"], cfg.ssm, ftc=fc)
+        return shard(x + mamba2_forward(_norm(x, lp["ln"], cfg), lp["mamba"], cfg.ssm, ftc=fc),
+                     "batch", "seq", "embed")
 
     dense, moe, decoder = _remat(dense_block, cfg), _remat(moe_block, cfg), _remat(decoder_block, cfg)
     rwkv, mamba = _remat(rwkv_block, cfg), _remat(mamba_block, cfg)
     if cfg.family == "encdec":
         enc = ed.encoder_forward(audio_frontend(batch["frames"].to(cfg.dtype)), p["encoder"], cfg.d_model,
                                  cfg.n_heads, ftc=ftc)
+        enc = shard(enc, "batch", "seq", "embed")
     if cfg.first_k_dense:
         for lp in p["dense_blocks"]:
             x = dense(x, lp, ftc)
@@ -325,7 +332,7 @@ def forward(
         for start, length in _hybrid_groups(cfg):
             for i in range(start, start + length):
                 x = mamba(x, p["blocks"][i], ftc)
-            x = dense_block(x, p["shared"], ftc)
+            x = dense_block(x, p["shared"], ftc)  # constrained inside, the reference's lm.py:436
     else:
         for lo, hi, fc in _layer_splits(n_main, ftc):
             for i in range(lo, hi):
@@ -458,8 +465,76 @@ def _logits(x, params, cfg: LMConfig, ftc: FTContext | None = None):
     # through its strides, never through a transposed copy
     logits = site_matmul(ftc, "head")(x, table.T)
     if cfg.padded_vocab != cfg.vocab:  # mask padded rows out of the softmax
-        logits[..., cfg.vocab:] = -1e30
-    return logits
+        if is_dtensor(logits):  # a vocab-sharded slice cannot be written in place
+            pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
+            logits = torch.where(pad, torch.full((), -1e30, dtype=logits.dtype, device=logits.device), logits)
+        else:
+            logits[..., cfg.vocab:] = -1e30
+    return shard(logits, "batch", "seq", "vocab")
+
+
+def _embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``: a row gather.  On a DTensor table,
+    the vocab-parallel lookup (:class:`_VocabParallelLookup`)."""
+    if is_dtensor(table):
+        return _VocabParallelLookup.apply(table, tokens)
+    return table[tokens]
+
+
+class _VocabParallelLookup(torch.autograd.Function):
+    """Megatron's vocab-parallel embedding on DTensors, the reference's
+    masked lookup and all-reduce.  Each device looks up the tokens that fall
+    in its rows of a vocab-sharded table and writes zeros for the others; the
+    rows are a pending sum (``Partial``) over the mesh axes that shard the
+    vocab, which the next ``shard`` reduces.  The backward scatters each
+    device's rows of the gradient into its shard of the table: a pending sum
+    over the axes that shard the tokens.  (DTensor's own rule for
+    ``embedding`` on a sharded table has no backward from a pending sum.)"""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        mesh = table.device_mesh
+        if not is_dtensor(tokens):
+            tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        out_pl, grad_pl = [], []
+        for tp, kp in zip(table.placements, tokens.placements):
+            if isinstance(tp, Shard) and tp.dim == 0 and kp.is_replicate():
+                out_pl.append(Partial())
+                grad_pl.append(tp)
+            elif tp.is_replicate():
+                out_pl.append(kp)
+                grad_pl.append(Replicate() if kp.is_replicate() else Partial())
+            else:
+                raise ValueError(f"an embedding table placed {table.placements} against tokens placed "
+                                 f"{tokens.placements}: only the vocab dim may be sharded, by axes the tokens "
+                                 "are replicated over")
+        _, off = compute_local_shape_and_global_offset(tuple(table.shape), mesh, table.placements)
+        tl, kl = table.to_local(), tokens.to_local()
+        rows = tl.shape[0]
+        rel = kl.long() - off[0]
+        ok = ((rel >= 0) & (rel < rows))[..., None]
+        rel = rel.clamp(0, rows - 1)
+        out = torch.where(ok, tl[rel], torch.zeros((), dtype=tl.dtype, device=tl.device))
+        ctx.save_for_backward(rel, ok)
+        ctx.spec = (mesh, tuple(out_pl), tuple(grad_pl), tuple(table.shape), table.stride(), rows)
+        shape = (*tokens.shape, table.shape[1])
+        return DTensor.from_local(out, mesh, out_pl, run_check=False, shape=torch.Size(shape),
+                                  stride=contiguous_strides(shape))
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        rel, ok = ctx.saved_tensors
+        mesh, out_pl, grad_pl, shape, stride, rows = ctx.spec
+        g = grad.redistribute(mesh, [Replicate() if isinstance(p, Partial) else p for p in out_pl]).to_local()
+        g = torch.where(ok, g, torch.zeros((), dtype=g.dtype, device=g.device))
+        gt = torch.zeros((rows, shape[1]), dtype=g.dtype, device=g.device)
+        gt.index_add_(0, rel.reshape(-1), g.reshape(-1, shape[1]))
+        return DTensor.from_local(gt, mesh, grad_pl, run_check=False, shape=torch.Size(shape), stride=stride), None
 
 
 def decode_step(
@@ -474,10 +549,11 @@ def decode_step(
 
     ``params`` are the ``cfg.dtype`` working copies (:func:`cast_params`).
     The JAX counterpart (``repro/models/lm.py:533-553``) casts the f32
-    masters to ``cfg.dtype`` and applies the no-op ``shard`` constraints
-    inside every step; here both are done once, when the bundle is built
-    (the values are identical), and must not come back per step: at full
-    width the cast alone moves about 1.9 GB per step.
+    masters to ``cfg.dtype`` inside every step; here that is done once, when
+    the bundle is built (the values are identical), and must not come back
+    per step: at full width the cast alone moves about 1.9 GB per step.
+    The ``shard`` constraints are its own; they act on DTensors only (the
+    sharded dry run) and are no-ops on the plain tensors a server holds.
 
     Every weight matmul of the protected layer prefix and the LM head routes
     through ``ftc``: attention projections, FFN, MoE router and experts.  The
@@ -492,7 +568,7 @@ def decode_step(
     counterpart of the reference step's donated cache.
     """
     _require_ported(cfg)
-    x = params["embed"][batch["token"].long()]
+    x = shard(_embed_rows(params["embed"], batch["token"].long()), "batch", None, "embed")
     act = _ACTS[cfg.act]
     xcfg = ed.CrossAttnConfig(cfg.d_model, cfg.n_heads)
 
@@ -501,28 +577,30 @@ def decode_step(
             return mla_decode(x, lp, cfg.mla, c, fc)[0]
         return gqa_decode(x, lp, cfg.attn_cfg, c, fc)[0]
 
+    # each block's output is constrained as in the reference (lm.py:562)
     def dense_block(x, lp, c, fc):
         x = x + attn(_norm(x, lp["ln1"], cfg), lp["attn"], c, fc)
-        return x + ffn(_norm(x, lp["ln2"], cfg), lp["ffn"], act=act, ftc=fc)
+        return shard(x + ffn(_norm(x, lp["ln2"], cfg), lp["ffn"], act=act, ftc=fc), "batch", None, "embed")
 
     def moe_block(x, lp, c, fc):
         x = x + attn(_norm(x, lp["ln1"], cfg), lp["attn"], c, fc)
         y, _ = moe_forward(_norm(x, lp["ln2"], cfg), lp["moe"], cfg.moe, ftc=fc)
-        return x + y
+        return shard(x + y, "batch", None, "embed")
 
     def decoder_block(x, lp, c, fc):
         x = x + gqa_decode(layernorm(x, lp["ln1"]), lp["attn"], cfg.attn_cfg, c, fc)[0]
         x = x + ed.cross_attn(layernorm(x, lp["ln_x"]), cache["enc"], lp["xattn"], xcfg, fc)
-        return x + ffn(layernorm(x, lp["ln2"]), lp["ffn"], act=_ACTS["gelu"], ftc=fc)
+        return shard(x + ffn(layernorm(x, lp["ln2"]), lp["ffn"], act=_ACTS["gelu"], ftc=fc), "batch", None, "embed")
 
     def rwkv_block(x, lp, c, fc):
-        return rwkv6_decode(x, lp, cfg.rwkv, c, fc)[0]
+        return shard(rwkv6_decode(x, lp, cfg.rwkv, c, fc)[0], "batch", None, "embed")
 
     if cfg.family == "hybrid":
         for gi, (start, length) in enumerate(_hybrid_groups(cfg)):
             for i in range(start, start + length):
                 lp = params["blocks"][i]
-                x = x + mamba2_decode(_norm(x, lp["ln"], cfg), lp["mamba"], cfg.ssm, cache["mamba"][i], ftc)[0]
+                x = shard(x + mamba2_decode(_norm(x, lp["ln"], cfg), lp["mamba"], cfg.ssm, cache["mamba"][i], ftc)[0],
+                          "batch", None, "embed")
             x = dense_block(x, params["shared"], cache["shared_attn"][gi], ftc)
         return _logits(x, params, cfg, ftc), cache
     if cfg.first_k_dense:

@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.ftcontext import site_matmul
-from repro_torch.models.layers import Params, dense_init, rmsnorm, rmsnorm_init
+from repro_torch.dist.sharding import copy_into, einsum
+from repro_torch.models.layers import Params, dense_init, merge_heads, rmsnorm, rmsnorm_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,14 +99,14 @@ def ssd_chunked(x, dt, A_log, B, C, D, chunk: int):
         # within the chunk: L[i, j] = exp(cums_i - cums_j) for j <= i
         li = cums[:, :, None, :] - cums[:, None, :, :]  # (B, q, q, H)
         L = torch.where(mask[None, :, :, None], torch.exp(li), 0.0)
-        cb = torch.einsum("bin,bjn->bij", Cc, Bc)  # (B, q, q)
+        cb = einsum("bin,bjn->bij", Cc, Bc)  # (B, q, q)
         w = cb[..., None] * L * dtc[:, None, :, :]  # weight j -> i per head
-        y_intra = torch.einsum("bijh,bjhp->bihp", w, xc)
+        y_intra = einsum("bijh,bjhp->bihp", w, xc)
         # from the previous chunks: y_i += exp(cums_i) C_i · S_prev
-        y_inter = torch.einsum("bih,bin,bhnp->bihp", torch.exp(cums), Cc, S)
+        y_inter = einsum("bih,bin,bhnp->bihp", torch.exp(cums), Cc, S)
         # the chunk's final state: dec·S_prev + Σ_j exp(cums_q - cums_j) dt_j B_j ⊗ x_j
         decay_to_end = torch.exp(cums[:, -1:, :] - cums)  # (B, q, H) <= 1
-        S_c = torch.einsum("bjh,bjn,bjhp->bhnp", decay_to_end * dtc, Bc, xc)
+        S_c = einsum("bjh,bjn,bjhp->bhnp", decay_to_end * dtc, Bc, xc)
         S = S * torch.exp(cums[:, -1, :])[..., None, None] + S_c
         ys.append(y_intra + y_inter)
     y = torch.cat(ys, dim=1)
@@ -118,7 +119,7 @@ def mamba2_forward(x, p, cfg: Mamba2Config, ftc=None) -> torch.Tensor:
     b, s, _ = x.shape
     dt = _softplus(dt.to(torch.float32) + p["dt_bias"])
     xs = xs.reshape(b, s, cfg.n_heads, cfg.head_dim)
-    y = ssd_chunked(xs, dt, p["A_log"], B, C, p["D"], cfg.chunk).reshape(b, s, cfg.d_inner)
+    y = merge_heads(ssd_chunked(xs, dt, p["A_log"], B, C, p["D"], cfg.chunk))
     y = rmsnorm(y * F.silu(z.to(torch.float32)).to(y.dtype), p["norm"])
     return site_matmul(ftc, "ssm.out")(y, p["out_proj"])
 
@@ -140,11 +141,11 @@ def mamba2_decode(x, p, cfg: Mamba2Config, cache: Params, ftc=None) -> tuple[tor
     a = -torch.exp(p["A_log"].to(torch.float32))
     xs = xs.reshape(b, cfg.n_heads, cfg.head_dim).to(torch.float32)
     decay = torch.exp(dt * a)[..., None, None]  # (B, H, 1, 1)
-    upd = torch.einsum("bh,bn,bhp->bhnp", dt, B.to(torch.float32), xs)
+    upd = einsum("bh,bn,bhp->bhnp", dt, B.to(torch.float32), xs)
     S_new = cache["ssm"] * decay + upd
-    y = torch.einsum("bn,bhnp->bhp", C.to(torch.float32), S_new)
+    y = einsum("bn,bhnp->bhp", C.to(torch.float32), S_new)
     y = y + p["D"][None, :, None] * xs
     y = y.reshape(b, 1, cfg.d_inner).to(x.dtype)
     y = rmsnorm(y * F.silu(z.to(torch.float32)).to(y.dtype)[:, None, :], p["norm"])
-    cache["ssm"].copy_(S_new)
+    copy_into(cache["ssm"], S_new)
     return site_matmul(ftc, "ssm.out")(y, p["out_proj"]), cache

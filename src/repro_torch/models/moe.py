@@ -1,8 +1,8 @@
 """Mixture-of-Experts FFN with GShard-style capacity dispatch, token-grouped.
 
 Dispatch and combine are einsums over a one-hot (B, G, E, C) tensor, as in
-the JAX package; they are plain ``torch.einsum`` here as there (outside any
-kernel).  The three expert matmuls go through ``ftc.einsum(...,
+the JAX package; they are plain einsums here as there (outside any kernel;
+``dist.sharding.einsum``, which is ``torch.einsum`` on plain tensors).  The three expert matmuls go through ``ftc.einsum(...,
 site="moe.expert")`` (one ``ft_matmul_batched`` launch each under the fused
 dispatch), the router through ``site_matmul(ftc, "moe.router")``.
 
@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.ftcontext import site_matmul
+from repro_torch.dist.sharding import einsum, shard
 from repro_torch.models.layers import Params, dense_init, ffn, ffn_init
 
 
@@ -80,7 +81,7 @@ def _topk_dispatch(gates: torch.Tensor, top_k: int, capacity: int):
     # a token occupies at most one slot per expert -> collapse k first
     pos_ne = (pos * onehot).sum(0)  # (B, G, E)
     keep_ne = keep.sum(0)           # (B, G, E)
-    gate_ne = torch.einsum("bgk,kbge->bge", topv, onehot)
+    gate_ne = einsum("bgk,kbge->bge", topv, onehot)
     # one_hot(pos, C): a position past capacity is an all-zero row
     slots = torch.arange(capacity, device=gates.device)
     dispatch = keep_ne[..., None] * (pos_ne.to(torch.int32)[..., None] == slots).to(torch.float32)
@@ -98,13 +99,19 @@ def _group_forward(xg: torch.Tensor, p: Params, cfg: MoEConfig, ftc=None):
     gates = torch.softmax(logits, dim=-1)
     capacity = max(1, int(cfg.capacity_factor * cfg.top_k * g / cfg.n_experts))
     dispatch, combine = _topk_dispatch(gates, cfg.top_k, capacity)
-    xe = torch.einsum("bgec,bgd->becd", dispatch.to(xg.dtype), xg)  # (B, E, C, d)
+    # on DTensors the dispatch and combine are cut to each device's experts
+    # first (a local slice), so that the einsums gather and scatter only its
+    # experts' rows: GSPMD infers this from the constraint on xe
+    dispatch = shard(dispatch, "batch", None, "expert", None)
+    combine = shard(combine, "batch", None, "expert", None)
+    xe = einsum("bgec,bgd->becd", dispatch.to(xg.dtype), xg)  # (B, E, C, d)
+    xe = shard(xe, "batch", "expert", None, None)  # the reference's moe.py:105
     # per-expert matmuls: each expert is one virtual-array execution
-    ein = (lambda s, a, w: ftc.einsum(s, a, w, site="moe.expert")) if ftc is not None else torch.einsum
+    ein = (lambda s, a, w: ftc.einsum(s, a, w, site="moe.expert")) if ftc is not None else einsum
     h = F.silu(ein("becd,edf->becf", xe, p["gate"].to(xg.dtype)))
     h = h * ein("becd,edf->becf", xe, p["up"].to(xg.dtype))
     ye = ein("becf,efd->becd", h, p["down"].to(xg.dtype))
-    out = torch.einsum("bgec,becd->bgd", combine.to(xg.dtype), ye)
+    out = einsum("bgec,becd->bgd", combine.to(xg.dtype), ye)
     # load-balancing aux loss (Switch-style), over real experts only
     me = gates[..., : cfg.n_experts].mean((0, 1))
     ce = dispatch[..., : cfg.n_experts, :].sum(-1).mean((0, 1))

@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.ftcontext import site_matmul
-from repro_torch.models.layers import Params, dense_init, rmsnorm, rmsnorm_init
+from repro_torch.dist.sharding import copy_into, einsum, shard
+from repro_torch.models.layers import Params, dense_init, merge_heads, rmsnorm, rmsnorm_init, split_heads
 
 CHUNK = 16
 LOGW_MIN = -4.0  # per-step log-decay floor; bounds exp(-cumw) <= e^64 in a chunk
@@ -91,13 +92,17 @@ def _rkvwg(x, xs, p, cfg: RWKV6Config, ftc=None):
     r = mm(mix(0), p["wr"])
     k = mm(mix(1), p["wk"])
     v = mm(mix(2), p["wv"])
-    logw = -torch.exp(p["w0"] + mm(torch.tanh(mm(mix(3), p["w_a"]).to(torch.float32)), p["w_b"]))
+    # on DTensors the LoRA's sum over its sharded rank is reduced before the
+    # bias is added
+    lora = shard(mm(torch.tanh(mm(mix(3), p["w_a"]).to(torch.float32)), p["w_b"]), "batch", "seq", "embed")
+    logw = -torch.exp(p["w0"] + lora)
     logw = torch.clamp(logw, min=LOGW_MIN)
     g = F.silu(mm(mix(4), p["wg"]).to(torch.float32))
-    b, s, _ = x.shape
-    shp = (b, s, cfg.n_heads, cfg.head_dim)
-    return (r.reshape(shp).to(torch.float32), k.reshape(shp).to(torch.float32),
-            v.reshape(shp).to(torch.float32), logw.reshape(shp), g)
+
+    def heads(t):
+        return split_heads(t, cfg.n_heads, cfg.head_dim)
+
+    return (heads(r).to(torch.float32), heads(k).to(torch.float32), heads(v).to(torch.float32), heads(logw), g)
 
 
 def wkv_chunked(r, k, v, logw, u, state=None, chunk: int = CHUNK):
@@ -121,13 +126,13 @@ def wkv_chunked(r, k, v, logw, u, state=None, chunk: int = CHUNK):
         ecw = cumw - wc  # exclusive cumsum (ecw_0 = 0)
         qd = rc * torch.exp(ecw)  # <= |r|
         kd = kc * torch.exp(-cumw)  # <= |k|·e^{|LOGW_MIN|·q}
-        sc = torch.einsum("bihd,bjhd->bhij", qd, kd)
+        sc = einsum("bihd,bjhd->bhij", qd, kd)
         sc = torch.where(mask, sc, 0.0)
-        diag = torch.einsum("bihd,hd,bihd->bhi", rc, u, kc)
-        y = torch.einsum("bhij,bjhd->bihd", sc, vc) + diag.transpose(1, 2)[..., None] * vc
-        y = y + torch.einsum("bihd,bhde->bihe", rc * torch.exp(ecw), S)
+        diag = einsum("bihd,hd,bihd->bhi", rc, u, kc)
+        y = einsum("bhij,bjhd->bihd", sc, vc) + diag.transpose(1, 2)[..., None] * vc
+        y = y + einsum("bihd,bhde->bihe", rc * torch.exp(ecw), S)
         dec_end = torch.exp(cumw[:, -1:] - cumw)  # <= 1
-        S = S * torch.exp(cumw[:, -1])[..., None] + torch.einsum("bjhd,bjhe->bhde", kc * dec_end, vc)
+        S = S * torch.exp(cumw[:, -1])[..., None] + einsum("bjhd,bjhe->bhde", kc * dec_end, vc)
         ys.append(y)
     return torch.cat(ys, dim=1), S
 
@@ -141,8 +146,8 @@ def wkv_recurrent(r, k, v, logw, u, state=None):
     ys = []
     for t in range(s):
         rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], logw[:, t]  # (B, H, dk)
-        kv = torch.einsum("bhd,bhe->bhde", kt, vt)
-        ys.append(torch.einsum("bhd,bhde->bhe", rt, S + u[None, :, :, None] * kv))
+        kv = einsum("bhd,bhe->bhde", kt, vt)
+        ys.append(einsum("bhd,bhde->bhe", rt, S + u[None, :, :, None] * kv))
         S = S * torch.exp(wt)[..., None] + kv
     return torch.stack(ys, dim=1), S
 
@@ -151,8 +156,7 @@ def rwkv6_time_mix(x, p, cfg: RWKV6Config, *, chunked: bool = True, ftc=None):
     r, k, v, logw, g = _rkvwg(x, _token_shift(x), p, cfg, ftc)
     wkv = wkv_chunked if chunked else wkv_recurrent
     y, _ = wkv(r, k, v, logw, p["u"])
-    b, s, _ = x.shape
-    y = rmsnorm(y.reshape(b, s, cfg.d_model), p["ln_x"])
+    y = rmsnorm(merge_heads(y), p["ln_x"])
     return site_matmul(ftc, "ssm.out")((y * g).to(x.dtype), p["wo"])
 
 
@@ -201,7 +205,7 @@ def rwkv6_decode(x, p, cfg: RWKV6Config, cache: Params, ftc=None) -> tuple[torch
     x1 = x + site_matmul(ftc, "ssm.out")((y * g).to(x.dtype), p["wo"])
     x1n = rmsnorm(x1, p["ln2"])
     out = x1 + _channel_mix(x1n, cache["x_cm"][:, None, :].to(x.dtype), p, ftc)
-    cache["S"].copy_(S_new)
-    cache["x_tm"].copy_(xn[:, 0])
-    cache["x_cm"].copy_(x1n[:, 0])
+    copy_into(cache["S"], S_new)
+    copy_into(cache["x_tm"], xn[:, 0])
+    copy_into(cache["x_cm"], x1n[:, 0])
     return out, cache

@@ -93,3 +93,25 @@ def map_with_path(fn: Callable, tree, path: tuple = (), layer: int | None = None
     if isinstance(tree, list):
         return [map_with_path(fn, v, path + (str(i),), layer) for i, v in enumerate(tree)]
     return fn(path, layer, tree)
+
+
+def stack_tree(tree):
+    """The reference's layout of a tree: every list (a layer stack of
+    per-layer trees of one structure) becomes one tree whose leaves are the
+    layers' leaves stacked on a new leading axis."""
+    if isinstance(tree, dict):
+        return {k: stack_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return tree_map2(lambda *layers: torch.stack(layers), *tree)
+    return tree
+
+
+def unstack_tree(stacked, like):
+    """The inverse of :func:`stack_tree`: ``like`` (a tree in the port's
+    layout) gives the layer stacks' lengths; each layer is a view of the
+    stacked leaves."""
+    if isinstance(like, dict):
+        return {k: unstack_tree(stacked[k], v) for k, v in like.items()}
+    if isinstance(like, list):
+        return [tree_map(lambda a, i=i: a[i], stacked) for i in range(len(like))]
+    return stacked

@@ -249,9 +249,11 @@ def test_one_dense_layers_probe_flops_are_its_matmuls():
 
 def test_dryrun_host_and_specs_only(tmp_path):
     """The dry run traces qwen's decode_32k (128 x 32768 cache) on ``meta``
-    with exact argument and output bytes, and the CLI writes the specs-only
-    records of every applicable qwen cell on the production meshes, each
-    spec dividing its dimension."""
+    with exact argument and output bytes; the CLI (in a subprocess: it makes
+    a ``fake`` process group) traces the cell on the production meshes,
+    where each record keeps its specs and its per-device argument bytes,
+    which the traced arguments equal; and every applicable qwen cell's specs
+    divide their dimensions on both meshes."""
     rec = TD.run_cell("qwen1.5-0.5b", "decode_32k", "host", verbose=False)
     cfg = tget("qwen1.5-0.5b")
     kv = 2 * cfg.n_layers * 128 * 32768 * cfg.n_kv * (cfg.head_dim or cfg.d_model // cfg.n_heads) * 2
@@ -260,12 +262,23 @@ def test_dryrun_host_and_specs_only(tmp_path):
     assert rec["memory_analysis"]["output_size_in_bytes"] == 128 * cfg.padded_vocab * 2 + kv + cfg.n_layers * 128 * 4
     assert rec["cost_analysis"]["flops"] > 0 and rec["collectives"]["total_wire_bytes"] == 0
     assert rec["op_histogram"]["dot"] > 0 and rec["op_histogram"]["fusion"] == 0
-    assert TD.main(["--arch", "qwen1.5-0.5b", "--mesh", "both", "--out-dir", str(tmp_path)]) == 0
-    got = {p.name: json.loads(p.read_text())["status"] for p in tmp_path.glob("*.json")}
-    assert sorted(got.values()) == ["skipped"] * 2 + ["specs_only"] * 6
-    single = json.loads((tmp_path / "qwen1.5-0.5b__train_4k__single.json").read_text())
-    assert single["specs"]["params"]["blocks.ffn.down"] == [None, "model", None]
-    assert set(single["argument_bytes_per_device"]) == {"params", "inputs", "opt"}
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen1.5-0.5b", "--shape",
+                          "decode_32k", "--mesh", "both", "--out-dir", str(tmp_path)], capture_output=True, text=True,
+                         timeout=300, env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = {p.name: json.loads(p.read_text()) for p in tmp_path.glob("*.json")}
+    assert sorted(got) == [f"qwen1.5-0.5b__decode_32k__{m}.json" for m in ("multi", "single")]
+    for r in got.values():
+        assert r["status"] == "ok" and r["collectives"]["counts"]["all-reduce"] == 2 * cfg.n_layers + 1
+        assert r["memory_analysis"]["argument_size_in_bytes"] == sum(r["argument_bytes_per_device"].values())
+        assert r["specs"]["params"]["blocks.ffn.down"] == [None, "model", None]
+    for mk, multi in (("single", False), ("multi", True)):
+        mesh = TD.make_production_mesh(multi_pod=multi)
+        for cell in TSH.applicable_cells(cfg):
+            single = TD.spec_record({}, cfg, cell, mesh)
+            assert single["specs"]["params"]["blocks.ffn.down"] == [None, "model", None]
+            want = {"params", "inputs", "opt"} if cell.kind == "train" else {"params", "inputs"}
+            assert set(single["argument_bytes_per_device"]) == want
     with pytest.raises(ValueError, match="puts 16 devices"):
         TD.check_divides({"w": torch.empty(8, 4, device="meta")}, {"w": (None, "model")},
                          MeshSpec((16, 16), ("data", "model")), "params")
