@@ -4,7 +4,9 @@
 
 Phases, each printed on its own line; any failure exits non-zero:
 
-  1. device   — require CUDA; print the card's name and power limit;
+  1. device   — require CUDA; print the card's name and power limit, the
+     host's MemTotal and MemAvailable (every bundle's f32 masters live in
+     host memory) and the free disk under build/;
   2. build    — compile every kernel under src/repro_torch/csrc with nvcc,
      one nvcc per source in parallel, and print each kernel's registers,
      shared memory and spill bytes as nvcc -Xptxas -v reported them;
@@ -23,8 +25,9 @@ Phases, each printed on its own line; any failure exits non-zero:
      LoRA call (w_b), at 4 x 64 -> 4096 and 2048 x 64 -> 4096, the same way
      (bitwise on an f32 x that bf16 cannot hold);
   4. ft_matmul_batched against ft_matmul_batched_ref in the same way, at the
-     granite expert shapes (48 experts x 4 rows, 1536->512 and 512->1536)
-     and ragged ones (5x3x1000->1000, M = 37, a 66-byte row pitch), with x
+     granite expert shapes (48 experts x 4 rows, 1536->512 and 512->1536),
+     deepseek's (64 x 4 rows, 2048->1408 and 1408->2048) and ragged ones
+     (5x3x1000->1000, M = 37, a 66-byte row pitch), with x
      read as the strided view of the (b, e, c, d) dispatch layout that the
      MoE path hands it;
   5. probe_check against probe_check_ref over every row-block, ± probes,
@@ -32,7 +35,10 @@ Phases, each printed on its own line; any failure exits non-zero:
      for both halves of the pair) against probe_check_pair_ref on the same
      row-blocks and on random small and full-range int32 operands with
      stuck-at faults on bits 0, 15, 30 and 31, one launch a call;
-  6. each served model at full width (random weights from a seed), through
+  6. each served model at full width (random weights from a seed; each
+     bundle prints its build seconds, its masters' host bytes and the card's
+     peak while it was built, and holds every master to the host and every
+     working copy to the card), through
      the decode step captured as one CUDA graph (the main path): off,
      protected with 3 BIST faults and a fourth that appears at step 2 on a
      PE row a 4-slot step never reaches (every step's logits and the tokens
@@ -111,11 +117,13 @@ Phases, each printed on its own line; any failure exits non-zero:
      array has no false positive or negative.
   10. the training and prefill slice.  prefill_kernels: ft_matmul and
      ft_matmul_batched against their plain versions at the fused prefill's
-     shapes (M = 2048; the experts 48 x 512 rows), as in 3 and 4.  On
+     shapes (M = 2048; the experts 48 x 512 and 64 x 240 rows), as in 3
+     and 4.  On
      qwen1.5-0.5b before it is freed: serve_retrain — repair="retrain" with
      the six faults of serve_remap at step 2, where the hook plans the remap
-     and fine-tunes this server's f32 masters (4 steps, twopass) and its
-     step recaptures once over its own working copies: 4 slots, quality
+     and fine-tunes this server's f32 masters (4 steps, twopass), copied
+     from the host to the card for it and kept on the host after it, and
+     its step recaptures once over its own working copies: 4 slots, quality
      0.75, captured equal to eager bit for bit, the main path's launches a
      step, the retrain seconds, and a sibling on the same bundle serving
      the protected scenario bitwise as before with one capture;
@@ -170,6 +178,20 @@ Phases, each printed on its own line; any failure exits non-zero:
      the three modes captured and eager (captured equal to eager and
      protected to off bit for bit, unprotected different), the kernel times
      a decode step, and the fused prefill of 4 x 512 tokens.
+     Then the fine-grained MoE, deepseek-moe-16b (arXiv:2401.06066): first
+     serve_reference_full_width, its full widths cut to two layers (the
+     dense layer, one MoE layer of 64 + 2 experts; f32 working copies and
+     KV caches): decode_step over one batch on the card against the CPU
+     from the same host masters, fault-free and unprotected with a fault:
+     every step's logits within REFERENCE_TOL of the CPU's max |logit|,
+     every greedy token equal, the card's launches the step's; then the
+     whole model (28 layers, d 2048, vocab 102400: 32.75 GB of bf16 working
+     copies on the card, its 65.5 GB of f32 masters on the host, the card's
+     peak while it was built under DEEPSEEK_BUILD_PEAK) through the modes
+     of 6 captured and eager (ft_matmul 224, ft_matmul_batched 81 a step),
+     serve_remap at full width (the planner's salience streamed layer by
+     layer from the host masters), the kernel times a decode step and the
+     fused prefill of 4 x 512 tokens (the experts at 64 x 240 rows).
   13. the paper's own evaluation, after every model is freed; it launches
      none of the five kernels (their counts, set to 0 before, must stay 0).
      campaign — the campaign and fig10 twins at their quick sizes on the
@@ -276,6 +298,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -297,7 +320,9 @@ GRANITE8B, STARCODER2, MINICPM3 = "granite-8b", "starcoder2-3b", "minicpm3-4b"
 LLAVA, WHISPER = "llava-next-mistral-7b", "whisper-tiny"
 # the recurrent families, served after the attention families
 RWKV6, ZAMBA2 = "rwkv6-7b", "zamba2-1.2b"
-FAMILIES = (GRANITE8B, STARCODER2, MINICPM3, LLAVA, WHISPER, RWKV6, ZAMBA2)
+# the fine-grained MoE, served last: its f32 masters (65.5 GB) live on the host
+DEEPSEEK = "deepseek-moe-16b"
+FAMILIES = (GRANITE8B, STARCODER2, MINICPM3, LLAVA, WHISPER, RWKV6, ZAMBA2, DEEPSEEK)
 # (name, M, K, N, launches per decode step) of each model's ft_matmul calls
 DECODE_SHAPES = {
     QWEN: (
@@ -366,6 +391,16 @@ DECODE_SHAPES = {
         ("down_8192x2048", 4, 8192, 2048, 7),
         ("head_2048x32000", 4, 2048, 32000, 1),
     ),
+    # MHA; one dense layer (d_ff 10944); 27 MoE layers: the 2 shared experts as one FFN, the router; untied head
+    DEEPSEEK: (
+        ("qkvo_2048x2048", 4, 2048, 2048, 28 * 4),
+        ("dense_gate_up_2048x10944", 4, 2048, 10944, 2),
+        ("dense_down_10944x2048", 4, 10944, 2048, 1),
+        ("shared_gate_up_2048x2816", 4, 2048, 2816, 27 * 2),
+        ("shared_down_2816x2048", 4, 2816, 2048, 27),
+        ("router_2048x64", 4, 2048, 64, 27),
+        ("head_2048x102400", 4, 2048, 102400, 1),
+    ),
 }
 # the shapes whose x is float32 against a bf16 w: RWKV6's decay LoRA feeds
 # its f32 tanh to w_b; the call runs the CUDA-core instantiation and stores f32
@@ -377,6 +412,10 @@ EXPERT_SHAPES = {
     GRANITE: (
         ("gate_up_48x1536x512", 48, 4, 1536, 512, 32 * 2),
         ("down_48x512x1536", 48, 4, 512, 1536, 32),
+    ),
+    DEEPSEEK: (  # 64 routed experts, top-6
+        ("gate_up_64x2048x1408", 64, 4, 2048, 1408, 27 * 2),
+        ("down_64x1408x2048", 64, 4, 1408, 2048, 27),
     ),
 }
 # shapes beside the main path's: ragged M, N and K; M = 37 (ten row tiles);
@@ -417,6 +456,26 @@ def check(cond: bool, msg: str) -> None:
 
 
 # --------------------------------------------------------------------------- #
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+
+
+def host_memory() -> dict[str, int]:
+    """/proc/meminfo's MemTotal and MemAvailable, in bytes: the f32 masters
+    of every bundle live in host memory (deepseek-moe-16b's: 65.5 GB)."""
+    with open("/proc/meminfo") as f:
+        kb = {k: int(v.split()[0]) for k, v in (line.split(":", 1) for line in f)}
+    return {k: 1024 * kb[k] for k in ("MemTotal", "MemAvailable")}
+
+
+def free_host_memory() -> None:
+    """Collect freed bundles and hand the heap's free pages back to the
+    system, so that the next model's masters find the host's memory."""
+    import ctypes
+
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+
+
 def device_phase() -> str:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -426,6 +485,8 @@ def device_phase() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    host = host_memory()
+    os.makedirs(BUILD_DIR, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     props = torch.cuda.get_device_properties(0)
@@ -436,7 +497,9 @@ def device_phase() -> str:
           smem_per_sm=getattr(props, "shared_memory_per_multiprocessor", None),
           smem_per_block_optin=getattr(props, "shared_memory_per_block_optin", None),
           hw=dict(SM_COUNT=hw.SM_COUNT, HBM_BYTES=hw.HBM_BYTES, L2_BYTES=hw.L2_BYTES, SMEM_PER_SM=hw.SMEM_PER_SM,
-                  SMEM_PER_BLOCK=hw.SMEM_PER_BLOCK))
+                  SMEM_PER_BLOCK=hw.SMEM_PER_BLOCK),
+          host_mem_total=host["MemTotal"], host_mem_available=host["MemAvailable"], cpu_count=os.cpu_count(),
+          build_disk_free=shutil.disk_usage(BUILD_DIR).free)
     # launch/hw.py's SM count is the card's; its HBM size holds the memory
     # the card reports (a little of the 80 GiB stays reserved)
     check(props.multi_processor_count == hw.SM_COUNT,
@@ -643,7 +706,7 @@ def ft_matmul_batched_phase(dev) -> float:
     and_g, or_g = fault_grids(dev)
     max_err = max_rel = 0.0
     plans = {}
-    shapes = [s[:5] for s in EXPERT_SHAPES[GRANITE]] + list(EXTRA_EXPERT_SHAPES)
+    shapes = [s[:5] for arch_shapes in EXPERT_SHAPES.values() for s in arch_shapes] + list(EXTRA_EXPERT_SHAPES)
     for name, e, m, k, n in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             def operands(kind: str):
@@ -950,21 +1013,45 @@ def serve_modes(bundle, smi: str, arch: str, scenarios, bist_at=None) -> dict:
     return runs
 
 
-def full_bundle(dev, arch: str):
-    """``arch``'s ModelBundle at full width: random f32 masters from seed 0,
-    bf16 working copies, 4 slots, the 8x8 array with a DPPU of 4, fused."""
+# the card's peak while deepseek-moe-16b's bundle is built: its working
+# copies (32.75 GB) and one f32 piece (an MoE layer, 2.35 GB), not the 98.3 GB
+# that f32 masters beside them would take
+DEEPSEEK_BUILD_PEAK = 40e9
+
+
+def full_bundle(dev, arch: str, lm=None):
+    """``arch``'s ModelBundle at full width (or ``lm``): random f32 masters
+    from seed 0 on the host, bf16 working copies on the card, 4 slots, the
+    8x8 array with a DPPU of 4, fused.  Prints the build seconds, the
+    masters' host bytes, the card's bytes after the build and its peak
+    during it, and the host's available memory after it; holds every master
+    to the host and every working copy to the card."""
     from repro_torch.configs import get_config
     from repro_torch.serving import ModelBundle, ServerConfig
+    from repro_torch.tree import tree_leaves
 
-    lm = get_config(arch)
+    lm = lm or get_config(arch)
     cfg = ServerConfig(arch=arch, device=str(dev), dispatch="fused", n_slots=4, rows=ROWS, cols=COLS,
                        dppu_size=4, smax=96, seed=0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     bundle = ModelBundle(cfg, lm=lm)
     torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    work_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(bundle.work))
+    check(all(a.device.type == "cpu" and a.dtype == torch.float32 for a in tree_leaves(bundle.params))
+          and all(a.device.type == "cuda" for a in tree_leaves(bundle.work)),
+          f"{lm.name}: the masters are not all on the host, or the working copies not all on the card")
+    if lm.name == DEEPSEEK:
+        check(peak - base < DEEPSEEK_BUILD_PEAK, f"{lm.name}: the build's peak on the card is {peak - base} bytes")
     phase("bundle", arch=lm.name, layers=lm.n_layers, d_model=lm.d_model, vocab=lm.padded_vocab,
           family=lm.family, attn=lm.attn_kind, norm=lm.norm, experts=lm.moe.n_padded if lm.moe else 0,
-          seconds=round(time.perf_counter() - t0, 3), device_gib=round(torch.cuda.memory_allocated() / 2**30, 3))
+          seconds=seconds, device_gib=round(torch.cuda.memory_allocated() / 2**30, 3),
+          work_bytes=work_bytes, master_host_bytes=bundle.master_bytes, build_peak_device_bytes=peak - base,
+          host_mem_available=host_memory()["MemAvailable"])
     return bundle
 
 
@@ -1012,6 +1099,17 @@ def server_phase(dev, smi: str, arch: str):
           remap_max_abs_err_logits=max(rerr), remap_tokens_equal=True, remap_card_captures=gm["captures"])
     return bundle, runs
 
+
+# a full-width model cut to two layers on the card against the CPU, f32: each
+# step's logits, relative to the CPU's max |logit| (the two sum in other
+# orders).  Its KV caches are f32: a bf16 cache rounds the two sides' values,
+# a few ulps apart, to neighbouring bf16 values now and then, and such a flip
+# moves the logits by a bf16 ulp of a K or V entry and can turn an expert's
+# top-6.  Its fault sits on mantissa bit 10: a carry of those few
+# ulps into a stuck bit b moves a value by 2^(b - 23) of its binade (ROADMAP
+# C, known limits), 1.2e-4 at bit 10, 0.125 at bit 20.
+REFERENCE_TOL = 1e-4
+REFERENCE_FAULT = (1, 2, 10, 1)
 
 # six faults in six PE columns, in PE rows 0-3 (a 4-slot step reaches them),
 # on bits a bf16 output keeps; they appear at step 2, after the capture, and
@@ -1994,9 +2092,10 @@ def abft_lanes_phase(dev, smi, bundle) -> dict:
     from repro_torch.transient import abft_check, flip_bits
 
     t0 = time.perf_counter()
+    # the f32 masters live on the host: the four matrices go to the card
     blk = bundle.params["blocks"][0]
-    f32 = (("q_1024x1024", blk["attn"]["wq"]), ("up_1024x2816", blk["ffn"]["up"]),
-           ("down_2816x1024", blk["ffn"]["down"]), ("head_1024x152064", bundle.params["embed"].T))
+    f32 = (("q_1024x1024", blk["attn"]["wq"].to(dev)), ("up_1024x2816", blk["ffn"]["up"].to(dev)),
+           ("down_2816x1024", blk["ffn"]["down"].to(dev)), ("head_1024x152064", bundle.params["embed"].to(dev).T))
     g = torch.Generator(device=dev).manual_seed(11)
     scenarios = {"fault_free": ((), "protected"), "capacity": (ABFT_CAPACITY, "protected"),
                  "unprotected": (ABFT_UNPROTECTED, "unprotected")}
@@ -2153,7 +2252,7 @@ def verify_phase(dev, smi, bundle) -> dict:
     from repro_torch.runtime import OnlineVerifier
 
     t0 = time.perf_counter()
-    w = bundle.params["blocks"][0]["ffn"]["up"]
+    w = bundle.params["blocks"][0]["ffn"]["up"].to(dev)  # the f32 master, from the host
     x = torch.randn((4, w.shape[0]), generator=torch.Generator(device=dev).manual_seed(12), device=dev)
     hyca = HyCAConfig(rows=ROWS, cols=COLS, mode="unprotected")
     clean = ft_matmul(x, w, *fault_mask_grids(fault_meta_grid(_fault_state((), dev), hyca)))
@@ -2196,7 +2295,7 @@ def transients_phase(dev, smi, bundle) -> None:
 # of 3072, a multiple of the query block that holds its 2880 patches; whisper
 # 4 of 448 tokens through the decoder over 4 x 1500 frames through the encoder
 PREFILL = {QWEN: (4, 512), GRANITE: (4, 512), MINICPM3: (4, 512), LLAVA: (1, 3072), WHISPER: (4, 448),
-           RWKV6: (4, 512), ZAMBA2: (4, 512)}
+           RWKV6: (4, 512), ZAMBA2: (4, 512), DEEPSEEK: (4, 512)}
 # (name, M, K, N, launches per prefill) of each model's ft_matmul calls in the
 # fused prefill: M = B·S, the head at M = B (last_only)
 PREFILL_SHAPES = {
@@ -2257,14 +2356,28 @@ PREFILL_SHAPES = {
         ("down_2048x8192x2048", 2048, 8192, 2048, 7),
         ("head_4x2048x32000", 4, 2048, 32000, 1),
     ),
+    DEEPSEEK: (
+        ("qkvo_2048x2048x2048", 2048, 2048, 2048, 28 * 4),
+        ("dense_gate_up_2048x2048x10944", 2048, 2048, 10944, 2),
+        ("dense_down_2048x10944x2048", 2048, 10944, 2048, 1),
+        ("shared_gate_up_2048x2048x2816", 2048, 2048, 2816, 27 * 2),
+        ("shared_down_2048x2816x2048", 2048, 2816, 2048, 27),
+        ("router_2048x2048x64", 2048, 2048, 64, 27),
+        ("head_4x2048x102400", 4, 2048, 102400, 1),
+    ),
 }
 # (name, E, M, K, N, launches per prefill) of ft_matmul_batched: M = B x the
-# expert capacity, int(1.25 * top_k * S / n_experts) = 128 slots
+# expert capacity, int(1.25 * top_k * S / n_experts) slots: granite's 128
+# (top-8 of 40 experts), deepseek's 60 (top-6 of 64)
 PREFILL_EXPERT_SHAPES = {
     **{arch: () for arch in PREFILL},
     GRANITE: (
         ("gate_up_48x512x1536x512", 48, 512, 1536, 512, 32 * 2),
         ("down_48x512x512x1536", 48, 512, 512, 1536, 32),
+    ),
+    DEEPSEEK: (
+        ("gate_up_64x240x2048x1408", 64, 240, 2048, 1408, 27 * 2),
+        ("down_64x240x1408x2048", 64, 240, 1408, 2048, 27),
     ),
 }
 # fused against twopass, last-position logits of a full-width bf16 prefill:
@@ -2272,6 +2385,17 @@ PREFILL_EXPERT_SHAPES = {
 # one-ulp differences pass through every layer; a wrong kernel is off by the
 # logits' own size
 TWOPASS_PREFILL_TOL = 2.0**-3  # of max |logit|
+# ...except where a one-ulp difference changes which experts a token is
+# routed to.  The kernels accumulate on the tensor cores, as cuBLAS does; the
+# twopass engine accumulates in IEEE f32 on the CUDA cores, so some bf16
+# outputs land one ulp apart.  deepseek-moe-16b's router picks 6 of 64
+# experts from bf16 logits, which tie often; each flipped pick moves a
+# token's output by its own size and, through the experts' capacity, other
+# tokens'.  Its twopass is held in f32 (serve_reference_full_width), its
+# bf16 fused prefill against the plain dispatch's (cuBLAS); the bf16 twopass
+# gap is printed with the flipped picks of each MoE layer, twopass's and
+# plain's against fused's.
+TWOPASS_BF16_UNHELD = (DEEPSEEK,)
 
 
 def prefill_kernel_checks(dev) -> dict[str, float]:
@@ -2288,7 +2412,9 @@ def prefill_kernel_checks(dev) -> dict[str, float]:
     and_g, or_g = fault_grids(dev)
     launches0 = {name: k.launches for name, k in _kernels().items()}
     errs, plans, max_abs = {}, {}, {"ft_matmul": 0.0, "ft_matmul_batched": 0.0}
-    for name, m, k, n in [s[:4] for a in PREFILL_SHAPES for s in PREFILL_SHAPES[a] if not s[0].startswith("head")]:
+    # zamba2 and deepseek share qkvo_2048x2048x2048: each shape is checked once
+    for name, m, k, n in dict.fromkeys(s[:4] for a in PREFILL_SHAPES for s in PREFILL_SHAPES[a]
+                                       if not s[0].startswith("head")):
         for dtype in (torch.bfloat16, torch.float32):
             def operands(kind: str):
                 return (_draw(g, dev, dtype, kind, (m, k), 1.0, kind == "frac_x"),
@@ -2297,8 +2423,7 @@ def prefill_kernel_checks(dev) -> dict[str, float]:
                                                                    operands, and_g, or_g, dtype)
             max_abs["ft_matmul"] = max(max_abs["ft_matmul"], err)
             plans[name] = _plan_str(plan_of(*operands("integer")))
-    b = PREFILL[GRANITE][0]
-    for name, e, m, k, n, _ in PREFILL_EXPERT_SHAPES[GRANITE]:
+    for b, (name, e, m, k, n, _) in [(PREFILL[a][0], s) for a in PREFILL for s in PREFILL_EXPERT_SHAPES[a]]:
         for dtype in (torch.bfloat16, torch.float32):
             def operands(kind: str):
                 # the (b, e, c, d) dispatch layout, copied to (e, b·c, d) as FTContext.einsum does
@@ -2346,7 +2471,9 @@ def prefill_modes(bundle, batch: dict, dev) -> dict:
     off) and unprotected with a stuck-at-1 on bit 30 of PE(0, 0) (differs
     from off), each launching the tables' count of each kernel (every other
     kernel 0), counted from 0 just before and read just after; and the
-    twopass engine on the BIST faults, within TWOPASS_PREFILL_TOL of fused.
+    twopass engine on the BIST faults, within TWOPASS_PREFILL_TOL of fused
+    (for TWOPASS_BF16_UNHELD printed with each MoE layer's flipped router
+    picks, and fused held to the plain dispatch within it instead).
     Returns the contexts, the prefill, each mode's logits and ms, the
     protected prefill's launches and the twopass comparison."""
     from repro_torch.models.lm import forward
@@ -2386,15 +2513,50 @@ def prefill_modes(bundle, batch: dict, dev) -> dict:
     check(bool(torch.isfinite(off[..., :lm.vocab].float()).all()), f"{arch} prefill off: non-finite logits")
     check(torch.equal(off.view(torch.int16), prot.view(torch.int16)), f"{arch} prefill: protected differs from off")
     check(not torch.equal(off.view(torch.int16), unprot.view(torch.int16)), f"{arch} prefill: unprotected equals off")
+    held = arch not in TWOPASS_BF16_UNHELD
+    routes = {"fused": [], "twopass": [], "plain": []}
     t1 = time.perf_counter()
-    twopass = prefill(_prefill_ctx("protected", BIST_FAULTS, "twopass", dev))
+    twopass = prefill(_prefill_ctx("protected", BIST_FAULTS, "twopass", dev) if held else
+                      _recording_routes(_prefill_ctx("protected", BIST_FAULTS, "twopass", dev), lm, routes["twopass"]))
     twopass_ms = 1e3 * (time.perf_counter() - t1)
-    a, b = prot[..., :lm.vocab].float(), twopass[..., :lm.vocab].float()
-    rel = float((a - b).abs().max()) / float(a.abs().max())
-    check(rel <= TWOPASS_PREFILL_TOL, f"{arch} prefill: fused vs twopass {rel} of max |logit| > {TWOPASS_PREFILL_TOL}")
-    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+    def rel_to(other):
+        a, b = prot[..., :lm.vocab].float(), other[..., :lm.vocab].float()
+        return float((a - b).abs().max()) / float(a.abs().max()), float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+    rel, agree = rel_to(twopass)
+    extra = {}
+    if held:
+        check(rel <= TWOPASS_PREFILL_TOL, f"{arch} prefill: fused vs twopass {rel} of max |logit| > {TWOPASS_PREFILL_TOL}")
+    else:
+        again = prefill(_recording_routes(_prefill_ctx("protected", BIST_FAULTS, "fused", dev), lm, routes["fused"]))
+        check(torch.equal(again.view(torch.int16), prot.view(torch.int16)), f"{arch} prefill: fused twice differs")
+        plain_rel, plain_agree = rel_to(prefill(_recording_routes(_prefill_ctx("protected", [], "plain", dev), lm,
+                                                                  routes["plain"])))
+        check(plain_rel <= TWOPASS_PREFILL_TOL,
+              f"{arch} prefill: fused vs plain {plain_rel} of max |logit| > {TWOPASS_PREFILL_TOL}")
+        flips = {k: [int((f != t).any(-1).sum()) for f, t in zip(routes["fused"], routes[k])] for k in ("twopass", "plain")}
+        extra = dict(twopass_routing_flips=flips["twopass"], plain_routing_flips=flips["plain"],
+                     routed_tokens=int(routes["fused"][0].shape[0]), plain_rel=plain_rel, plain_agree=plain_agree)
     return dict(ctxs=ctxs, prefill=prefill, logits=out, ms=ms, launches=launches, twopass_rel=rel,
-                twopass_agree=agree, twopass_ms=twopass_ms)
+                twopass_agree=agree, twopass_ms=twopass_ms, twopass_held=held, **extra)
+
+
+def _recording_routes(ctx, lm, log: list):
+    """``ctx`` with the expert set the router's logits pick for each token
+    appended to ``log`` at every MoE layer, (tokens, top_k) ascending, picked
+    as ``models/moe.py`` picks them (a stable descending sort)."""
+    matmul, k, e = ctx.matmul, lm.moe.top_k, lm.moe.n_experts
+
+    def recording(x, w, *, site):
+        out = matmul(x, w, site=site)
+        if site == "moe.router":
+            order = torch.sort(out.float()[..., :e].reshape(-1, e), dim=-1, descending=True, stable=True).indices
+            log.append(order[:, :k].sort(dim=-1).values)
+        return out
+
+    ctx.matmul = recording
+    return ctx
 
 
 def prefill_phase(dev, smi: str, bundle) -> dict[str, dict]:
@@ -2421,7 +2583,9 @@ def prefill_phase(dev, smi: str, bundle) -> dict[str, dict]:
     phase("prefill_fused", arch=arch, batch=b, seq=s, last_only=True, inputs=sorted(batch),
           launches=r["launches"], protected_equals_off=True, unprotected_differs=True,
           fused_vs_twopass_over_max_logit=r["twopass_rel"], fused_vs_twopass_tol=TWOPASS_PREFILL_TOL,
-          fused_twopass_argmax_agree=r["twopass_agree"],
+          fused_twopass_argmax_agree=r["twopass_agree"], fused_vs_twopass_held=r["twopass_held"],
+          **{k: r[k] for k in ("twopass_routing_flips", "plain_routing_flips", "routed_tokens", "plain_rel",
+                               "plain_agree") if k in r},
           prefill_ms={**r["ms"], "protected_runs": times, "twopass": r["twopass_ms"]},
           kernel_ms_per_prefill={k: v["ms"] for k, v in totals.items()},
           library_ms_per_prefill={k: v["library_ms"] for k, v in totals.items()},
@@ -2446,7 +2610,85 @@ def family_server_phase(dev, smi: str, arch: str):
     bundle = full_bundle(dev, arch)
     serve(bundle, "off", bundle.lm.vocab)  # warm-up
     runs = serve_modes(bundle, smi, arch, SCENARIOS, bist_at=2 if arch == WHISPER else None)
+    if arch == DEEPSEEK:  # the remap at full width: the planner's salience streamed from the host masters
+        serve_remap_phase(bundle, smi, arch)
     return bundle, runs
+
+
+def full_width_reference_phase(dev, smi: str, arch: str) -> dict:
+    """``arch`` at full width cut to two layers (deepseek-moe-16b: its dense
+    layer and one MoE layer of 64 + 2 experts, 1.1 B params), f32 working
+    copies: ``decode_step`` on one batch of 4 slots (8 prompt tokens, then
+    4 greedy ones) on the card (the kernels) and on the CPU (the plain
+    versions), from the same host masters, with f32 KV caches, fault-free
+    and unprotected with REFERENCE_FAULT.  Both are fed the CPU's tokens;
+    every step's logits are held within REFERENCE_TOL of the CPU's max
+    |logit|, every argmax to the CPU's, and the card's launches to the
+    step's calls as recorded on ``meta``: the path's real widths (top-6 of
+    64 experts at a decode capacity of 1, the dense FFN at K = 10944)
+    through the kernels in context.  Then the fused prefill of PREFILL's
+    batch against the twopass engine on the card, in f32, within
+    REFERENCE_TOL (TWOPASS_BF16_UNHELD)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import decode_step, forward, init_cache
+
+    t0 = time.perf_counter()
+    lm = dataclasses.replace(get_config(arch), n_layers=2, first_k_dense=1, dtype=torch.float32)
+    bundle = full_bundle(dev, arch, lm=lm)
+    params = {dev.type: bundle.work, "cpu": bundle.params}
+    n, prompt, gen = 4, 8, 4
+    tokens = torch.randint(0, lm.vocab, (n, prompt), generator=torch.Generator().manual_seed(4), dtype=torch.int32)
+    kernels = _kernels()
+    out, last = {}, {}
+    for mode, faults in (("off", ()), ("unprotected", (REFERENCE_FAULT,))):
+        ctxs = {d: _prefill_ctx("protected" if mode == "off" else mode, faults, "fused", d) for d in (dev.type, "cpu")}
+        caches = {d: init_cache(lm, n, prompt + gen, torch.float32, device=d) for d in ctxs}
+        want = decode_shapes(lm, ctxs["cpu"], bundle.work, n)
+        for k in kernels.values():
+            k.launches = 0
+        rel, argmax_equal, tok = [], True, tokens[:, :1]
+        for t in range(prompt + gen):
+            logits = {}
+            for d in ctxs:
+                with torch.no_grad():
+                    lg, _ = decode_step(params[d], lm, caches[d], {"token": tok.to(d)}, ftc=ctxs[d])
+                logits[d] = lg[:, 0, :lm.vocab].float().cpu()
+            g, c = logits[dev.type], logits["cpu"]
+            last[mode] = g
+            rel.append(float((g - c).abs().max() / c.abs().max()))
+            argmax_equal &= torch.equal(g.argmax(-1), c.argmax(-1))
+            tok = tokens[:, t + 1:t + 2] if t + 1 < prompt else c.argmax(-1, keepdim=True).to(torch.int32)
+        counts = {name: k.launches for name, k in kernels.items()}
+        steps = prompt + gen
+        per = {name: sum(v for (kn, *_), v in want.items() if kn == name)
+               for name in ("ft_matmul", "ft_matmul_batched")}
+        check(all(counts[name] == steps * per[name] for name in per),
+              f"{arch} 2 layers {mode}: launched {counts} in {steps} steps, the step calls {per}")
+        check(max(rel) <= REFERENCE_TOL, f"{arch} 2 layers {mode}, card vs CPU: logits differ by {max(rel)} "
+              f"of max |logit| (every step: {rel})")
+        check(argmax_equal, f"{arch} 2 layers {mode}, card vs CPU: a greedy token differs")
+        out[mode] = dict(max_rel_err_logits=max(rel), rel_err_by_step=rel, launches_per_step=per)
+    check(not torch.equal(last["off"], last["unprotected"]), f"{arch} 2 layers: the fault moved no logit")
+    # the fused prefill against the twopass engine on the card, in f32, where
+    # no one-ulp difference turns a router's pick (TWOPASS_BF16_UNHELD)
+    batch = prefill_batch(lm, dev, torch.Generator(device=dev).manual_seed(3))
+    pre = {}
+    for dispatch in ("fused", "twopass"):
+        with torch.no_grad():
+            lg, _ = forward(bundle.work, lm, batch, ftc=_prefill_ctx("protected", BIST_FAULTS, dispatch, dev),
+                            last_only=True)
+        pre[dispatch] = lg[..., :lm.vocab].float()
+    twopass_rel = float((pre["fused"] - pre["twopass"]).abs().max() / pre["twopass"].abs().max())
+    check(twopass_rel <= REFERENCE_TOL and torch.equal(pre["fused"].argmax(-1), pre["twopass"].argmax(-1)),
+          f"{arch} 2 layers, f32 prefill: fused vs twopass {twopass_rel} of max |logit|")
+    phase("serve_reference_full_width", arch=arch, layers=lm.n_layers, first_k_dense=lm.first_k_dense, dtype="f32",
+          cache="f32", slots=n, prompt=prompt, gen=gen, params=lm.n_params(), tol=REFERENCE_TOL,
+          fault=REFERENCE_FAULT, tokens_equal=True, **out, prefill=PREFILL[arch],
+          prefill_fused_vs_twopass_over_max_logit=twopass_rel, phase_s=time.perf_counter() - t0, card=smi)
+    del bundle, params, caches
+    free_host_memory()
+    torch.cuda.empty_cache()
+    return out
 
 
 # qwen1.5-0.5b training at the reference CLI's defaults: batch 8, seq 128,
@@ -2495,10 +2737,11 @@ def train_phase(dev, smi: str, bundle) -> dict:
     from repro_torch.launch import train as T
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.repair.retrain import RetrainConfig, grad_mask
-    from repro_torch.tree import map_with_path, tree_leaves
+    from repro_torch.tree import map_with_path, tree_leaves, tree_map
 
     t0 = time.perf_counter()
     lm = bundle.lm
+    params = tree_map(lambda a: a.to(dev), bundle.params)  # the f32 masters, from the host
     tc = T.TrainConfig(n_micro=TRAIN["n_micro"], opt=AdamWConfig(lr=TRAIN["lr"]), total_steps=TRAIN["steps"],
                        warmup=max(1, TRAIN["steps"] // 10), hyca_mode="protected", hyca_dispatch="twopass")
     hyca = HyCAConfig(rows=32, cols=32, mode="protected")
@@ -2506,7 +2749,7 @@ def train_phase(dev, smi: str, bundle) -> dict:
     faults = T.cli_fault_state(TRAIN["faults"], TRAIN["seed"], device=dev)
     data = SyntheticLM(DataConfig(seed=TRAIN["seed"], batch=TRAIN["batch"], seq_len=TRAIN["seq"]), lm)
     batches = [T.batch_to(data.batch(i), dev) for i in range(TRAIN["steps"])]
-    start = {"params": bundle.params, "opt": adamw_init(bundle.params)}
+    start = {"params": params, "opt": adamw_init(params)}
 
     def run(step_fn, fstate, n, keep=()):
         """``n`` steps from ``start``: (the states after the steps of
@@ -2543,10 +2786,10 @@ def train_phase(dev, smi: str, bundle) -> dict:
         check(not _trees_equal(states[2]["params"], unprot["params"]),
               "train: unprotected params after 2 steps equal the protected ones")
         del unprot
-        mask = grad_mask(bundle.params, RetrainConfig(trainable=("ffn",)))
+        mask = grad_mask(params, RetrainConfig(trainable=("ffn",)))
         masked = run(T.make_train_step(lm, tc, hyca=hyca, grad_mask=mask), faults, 2)[0]["last"]
-        frozen = map_with_path(lambda path, layer, t: "ffn" not in path, bundle.params)
-        pairs = list(zip(tree_leaves(frozen), tree_leaves(bundle.params), tree_leaves(masked["params"])))
+        frozen = map_with_path(lambda path, layer, t: "ffn" not in path, params)
+        pairs = list(zip(tree_leaves(frozen), tree_leaves(params), tree_leaves(masked["params"])))
         check(all(torch.equal(a, b) for f, a, b in pairs if f) and all(not torch.equal(a, b) for f, a, b in pairs
                                                                     if not f),
               "train: a frozen leaf moved, or an ffn leaf did not, under grad_mask(('ffn',))")
@@ -2583,7 +2826,6 @@ def checkpoint_phase(dev, smi: str, train: dict) -> dict:
     (deterministic mode); a tampered checkpoint re-fetched from a pristine
     copy, then refused with no source; ``memory_fault_records`` of both.
     The checkpoints live under build/ in the checkout and are removed."""
-    import shutil
     import tempfile
 
     from repro_torch.checkpoint import store
@@ -2591,9 +2833,8 @@ def checkpoint_phase(dev, smi: str, train: dict) -> dict:
     from repro_torch.transient import memory
 
     t0 = time.perf_counter()
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(root, exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt-", dir=root)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt-", dir=BUILD_DIR)
     try:
         state2, state4 = train["states"][2], train["states"][4]
         d, mirror = os.path.join(tmp, "ckpt"), os.path.join(tmp, "mirror")
@@ -2651,6 +2892,8 @@ def serve_retrain_phase(dev, smi: str, bundle, prot: dict) -> dict:
     0.75; the main path's launches a step; the retrain seconds; then a
     sibling on the same bundle serves the protected scenario bitwise as it
     did before (``prot``, from ``server_phase``), with one capture."""
+    from repro_torch.tree import tree_leaves
+
     arch = bundle.lm.name
     t0 = time.perf_counter()
     remap = dict(inject=tuple((REMAP_AT, f) for f in REMAP_FAULTS), bist_at=REMAP_AT, repair="retrain")
@@ -2668,6 +2911,12 @@ def serve_retrain_phase(dev, smi: str, bundle, prot: dict) -> dict:
         check(counts[name] == n * steps, f"{arch} retrain: {name} launched {counts[name]} times in {steps} steps")
     report = srv.retrain_reports[0]
     check(all(np.isfinite(report["losses"])), f"{arch} retrain: losses {report['losses']}")
+    # the fine-tune ran on the card, from the host masters; the repaired masters went back to the host
+    check(report["device"].startswith("cuda")
+          and all(a.device.type == "cpu" and a.dtype == torch.float32 for a in tree_leaves(srv.master_params))
+          and all(a.device.type == "cuda" and a.dtype == bundle.lm.dtype for a in tree_leaves(srv.params)),
+          f"{arch} retrain: fine-tuned on {report['device']}; the repaired masters on the host and the "
+          f"working copies on the card is not what the server holds")
     eager = serve(bundle, "protected", bundle.lm.vocab, record_logits=True, capture=False, **remap)
     check(eager["tokens"].keys() == run["tokens"].keys()
           and all(np.array_equal(eager["tokens"][r], run["tokens"][r]) for r in run["tokens"]),
@@ -2682,7 +2931,7 @@ def serve_retrain_phase(dev, smi: str, bundle, prot: dict) -> dict:
     (ms, tps) = _steady(run, skip=REMAP_AT + 2)
     out = dict(arch=arch, steps=steps, repair_event=events[0], effective_slots=sorted(set(eff)),
                quality_fraction=srv.manager.quality_fraction, retrain_steps=report["steps"],
-               retrain_losses=report["losses"], retrain_s=report["seconds"],
+               retrain_losses=report["losses"], retrain_s=report["seconds"], retrain_device=report["device"],
                eager_retrain_s=eager["server"].retrain_reports[0]["seconds"], captures=run["captures"],
                sibling_captures=sib["captures"], sibling_equals_before=True, graph_equals_eager=True,
                launches=counts, step_ms_median_after=ms, tokens_per_s_after=tps,
@@ -3219,11 +3468,9 @@ def serve_cli_phase(dev, smi) -> dict[str, int]:
     fused runs launch ft_matmul the ledger's count a step, the protected
     runs probe_check_pair once a scan step; the scrape equals the .prom file
     but for the wall-clock gauges.  Returns the launches of the card's runs."""
-    import shutil
-
     total = dict.fromkeys(_kernels(), 0)
     runs, out = {}, {}
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "serve_cli")
+    root = os.path.join(BUILD_DIR, "serve_cli")
     files = {"card": os.path.join(root, "card"), "cpu": os.path.join(root, "cpu")}
     argvs = dict(CLI_RUNS, obs=["--mode", "protected", "--faults", "3", "--dispatch", "fused", "--counters",
                                 "--metrics-port", "0"])
@@ -3807,8 +4054,6 @@ def analysis_phase(dev, smi: str, served_qwen: dict) -> dict[str, int]:
             os.environ.pop("REPRO_AUTOTUNE_DIR", None)
         else:
             os.environ["REPRO_AUTOTUNE_DIR"] = prior
-        import shutil
-
         shutil.rmtree(tune_dir, ignore_errors=True)
     bad = [(r["arch"], r["shape"], r["mesh"], r.get("error")) for r in all_records if r["status"] != "ok"]
     check(not bad, f"dry run: {bad}")
@@ -3910,9 +4155,11 @@ def main() -> None:
         for name, n in launch_steps_phase(dev, smi, bundle, prefilled if arch == QWEN else None).items():
             launches[name] += n
         del bundle, runs, prefilled
-        gc.collect()
+        free_host_memory()
         torch.cuda.empty_cache()  # the next model's bundle gets the card's memory
-    for arch in FAMILIES:  # the attention families, one bundle at a time
+    for arch in FAMILIES:  # the attention, recurrent and fine-grained MoE families, one bundle at a time
+        if arch == DEEPSEEK:  # its full widths in context, card against CPU, before its masters fill the host
+            full_width_reference_phase(dev, smi, arch)
         bundle, runs = family_server_phase(dev, smi, arch)
         for name, n in runs["protected"]["counts"].items():
             launches[name] += n
@@ -3920,7 +4167,7 @@ def main() -> None:
         if arch in PREFILL:  # the families whose forward runs other matmuls than their decode
             per_prefill[arch], _ = prefill_phase(dev, smi, bundle)
         del bundle, runs
-        gc.collect()
+        free_host_memory()
         torch.cuda.empty_cache()
     paper_phases(dev, smi)
     for name, n in fleet_phase(dev, smi).items():  # the fleet's replicas: every replayed step's launches

@@ -169,38 +169,48 @@ def _moe_block_init(gen: torch.Generator, cfg: LMConfig, device) -> Params:
     }
 
 
-def init_params(gen: torch.Generator, cfg: LMConfig, *, device=None) -> Params:
+def init_params(gen: torch.Generator, cfg: LMConfig, *, device=None, block_fn=None) -> Params:
     """Random f32 master params from a seeded ``torch.Generator``, on the
     generator's device (or ``device``, which must match it).  The moe family
     has ``blocks`` of MoE blocks and, when ``first_k_dense > 0``, the dense
     ``dense_blocks`` that sit below them; vlm adds the projector
     ``mm_proj``; encdec has the ``encoder`` and decoder layers as
     ``blocks``; ssm has RWKV6 ``blocks``; hybrid has ``blocks`` of ``{ln,
-    mamba}`` and one ``shared`` dense block, which is no layer stack."""
+    mamba}`` and one ``shared`` dense block, which is no layer stack.
+
+    ``block_fn``, when given, takes each piece as soon as it is drawn (the
+    embedding, the head, the final norm, each layer of a stack, the
+    projector, the shared block, the encoder) and its result stands in the
+    tree in the piece's place.  It draws nothing, so the draws are those of
+    a call without it: :class:`~repro_torch.serving.ModelBundle` hands each
+    f32 piece to the host and keeps a cast copy on the card, which then
+    never holds the whole f32 tree."""
     _require_ported(cfg)
     device = gen.device if device is None else torch.device(device)
-    p: Params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, device=device)}
+    put = block_fn or (lambda piece: piece)
+    p: Params = {"embed": put(embed_init(gen, cfg.padded_vocab, cfg.d_model, device=device))}
     if not cfg.tie_embeddings:
-        p["lm_head"] = embed_init(gen, cfg.padded_vocab, cfg.d_model, device=device)
-    p["final_norm"] = _norm_init(cfg, cfg.d_model, device)
+        p["lm_head"] = put(embed_init(gen, cfg.padded_vocab, cfg.d_model, device=device))
+    p["final_norm"] = put(_norm_init(cfg, cfg.d_model, device))
     if cfg.family in ("dense", "vlm"):
-        p["blocks"] = [_dense_block_init(gen, cfg, cfg.d_ff, device) for _ in range(cfg.n_layers)]
+        p["blocks"] = [put(_dense_block_init(gen, cfg, cfg.d_ff, device)) for _ in range(cfg.n_layers)]
         if cfg.family == "vlm":
-            p["mm_proj"] = mm_projector_init(gen, cfg.d_vision, cfg.d_model, device=device)
+            p["mm_proj"] = put(mm_projector_init(gen, cfg.d_vision, cfg.d_model, device=device))
     elif cfg.family == "ssm":
-        p["blocks"] = [rwkv6_init(gen, cfg.rwkv, device=device) for _ in range(cfg.n_layers)]
+        p["blocks"] = [put(rwkv6_init(gen, cfg.rwkv, device=device)) for _ in range(cfg.n_layers)]
     elif cfg.family == "hybrid":
-        p["blocks"] = [{"ln": _norm_init(cfg, cfg.d_model, device), "mamba": mamba2_init(gen, cfg.ssm, device=device)}
+        p["blocks"] = [put({"ln": _norm_init(cfg, cfg.d_model, device),
+                            "mamba": mamba2_init(gen, cfg.ssm, device=device)})
                        for _ in range(cfg.n_layers)]
-        p["shared"] = _dense_block_init(gen, cfg, cfg.d_ff, device)
+        p["shared"] = put(_dense_block_init(gen, cfg, cfg.d_ff, device))
     elif cfg.family == "encdec":
-        p["encoder"] = ed.encoder_init(gen, cfg.n_enc_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, device=device)
-        p["blocks"] = [ed.decoder_layer_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_ff, device=device)
+        p["encoder"] = put(ed.encoder_init(gen, cfg.n_enc_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, device=device))
+        p["blocks"] = [put(ed.decoder_layer_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_ff, device=device))
                        for _ in range(cfg.n_layers)]
     else:
-        p["blocks"] = [_moe_block_init(gen, cfg, device) for _ in range(cfg.n_layers - cfg.first_k_dense)]
+        p["blocks"] = [put(_moe_block_init(gen, cfg, device)) for _ in range(cfg.n_layers - cfg.first_k_dense)]
         if cfg.first_k_dense:
-            p["dense_blocks"] = [_dense_block_init(gen, cfg, cfg.dense_d_ff or cfg.d_ff, device)
+            p["dense_blocks"] = [put(_dense_block_init(gen, cfg, cfg.dense_d_ff or cfg.d_ff, device))
                                  for _ in range(cfg.first_k_dense)]
     return p
 
@@ -241,11 +251,17 @@ def stack_layers(layers: list):
     return np.stack(layers)
 
 
-def cast_params(params: Params, dtype) -> Params:
+def cast_params(params: Params, dtype, *, device=None) -> Params:
     """Working copies in ``dtype`` of every floating leaf — the JAX package's
-    per-step ``_cast`` done once.  A leaf already in ``dtype`` is shared, not
-    copied."""
-    return tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, params)
+    per-step ``_cast`` done once — on ``device`` (default: where each leaf
+    is), moved there leaf by leaf before the cast, so that host masters are
+    cast on the card.  A leaf already in ``dtype`` on ``device`` is shared,
+    not copied."""
+    def one(a):
+        a = a if device is None else a.to(device)
+        return a.to(dtype) if a.is_floating_point() else a
+
+    return tree_map(one, params)
 
 
 # --------------------------------------------------------------------------- #

@@ -42,13 +42,32 @@ def _host(a) -> np.ndarray:
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
-def _leaves(tree) -> Iterable[np.ndarray]:
-    """The leaves in the reference's order (dict keys sorted, lists in
-    order), each leaf of a layer stack stacked over its layers, one leaf at
-    a time: a full-width stack of every leaf at once would double the
-    host's copy of the params."""
-    for _, leaves, stacked in stacked_leaves(tree):
-        yield np.stack([_host(t) for t in leaves]) if stacked else _host(leaves[0])
+def _column_norms(layers: list) -> np.ndarray:
+    """``np.linalg.norm(stack.reshape(-1, n), axis=0)`` of the leaf stacked
+    over ``layers``, bit for bit, one layer at a time: the f32 sums of
+    squares are carried from one layer's rows into the next, so the host
+    never holds the stack or its squares (deepseek-moe-16b's expert ``down``
+    stacks to 19.9 GB).  numpy's reduction over the rows of a matrix adds
+    them one after another, so the carried sum is the stacked one.  A
+    single column is reduced pairwise instead, so it is stacked: a column a
+    layer is small."""
+    rows = [_host(t) for t in layers]
+    n = rows[0].shape[-1]
+    if n == 1:
+        col = np.concatenate([r.reshape(-1, 1) for r in rows])
+        return np.linalg.norm(col, axis=0)
+    acc = buf = None
+    for r in rows:
+        r = r.reshape(-1, n)
+        if acc is None:
+            acc = np.add.reduce(r * r, axis=0)
+            continue
+        if buf is None or buf.shape[0] != r.shape[0] + 1:
+            buf = np.empty((r.shape[0] + 1, n), acc.dtype)
+        buf[0] = acc
+        np.multiply(r, r, out=buf[1:])
+        acc = np.add.reduce(buf, axis=0)
+    return np.sqrt(acc)
 
 
 def weight_salience(params, cols: int) -> np.ndarray:
@@ -60,13 +79,17 @@ def weight_salience(params, cols: int) -> np.ndarray:
     reference reads its stacked params: each leaf of a layer stack
     (``blocks``, ``dense_blocks``, the encoder's ``layers``) stacked over
     the layers (so a norm scale counts as a (L, d) weight, and a column
-    norm runs over every layer's rows), leaves in sorted-key order.  The norms are numpy's on the f32 leaves, so the
-    result is the reference's bit for bit."""
+    norm runs over every layer's rows), leaves in sorted-key order.  A
+    stack's column norms are taken layer by layer (:func:`_column_norms`),
+    each other leaf's by ``np.linalg.norm``; both are numpy's on the f32
+    leaves, so the result is the reference's bit for bit."""
     s = np.zeros(cols, np.float64)
-    for a in _leaves(params):
-        if a.ndim >= 2 and np.issubdtype(a.dtype, np.floating):
-            col_norm = np.linalg.norm(a.reshape(-1, a.shape[-1]), axis=0)
-            s += fold_channel_salience(col_norm, cols)
+    for _, leaves, stacked in stacked_leaves(params):
+        a = _host(leaves[0])
+        if a.ndim + stacked < 2 or not np.issubdtype(a.dtype, np.floating):
+            continue
+        col_norm = _column_norms(leaves) if stacked else np.linalg.norm(a.reshape(-1, a.shape[-1]), axis=0)
+        s += fold_channel_salience(col_norm, cols)
     return s
 
 

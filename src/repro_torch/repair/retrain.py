@@ -116,6 +116,7 @@ def retrain(
         "loss_first": losses[0] if losses else None,
         "loss_last": losses[-1] if losses else None,
         "trainable": list(rc.trainable),
+        "device": str(device),
     }
     return train_state["params"], report
 

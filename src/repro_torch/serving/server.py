@@ -60,11 +60,18 @@ this server's own: its working copies are made from them, and its step
 recaptures once over them (:meth:`CapturedStep.swap_params`), since the
 captured graph read the bundle's shared copies at fixed addresses.  Every
 other server on the bundle goes on serving the bundle's params.
+
+The f32 masters live in host memory, for every bundle; the card holds the
+working copies the step reads (:class:`ModelBundle`).  Their readers take
+them where they need them: the remap salience reads them on the host, the
+retrain hook copies them to the card for the fine-tune and keeps the
+repaired masters on the host.
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
+import os
 import time
 import weakref
 
@@ -89,6 +96,7 @@ from repro_torch.serving.fault_manager import FaultInjector, FaultManager, Fault
 from repro_torch.serving.metrics import ServingMetrics, StepRecord
 from repro_torch.serving.queue import CompletedRequest, Request, RequestQueue
 from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+from repro_torch.tree import pick, tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +151,46 @@ def resolve_device(device: str) -> torch.device:
             f"pass device='cpu' to run the plain versions on the CPU"
         )
     return dev
+
+
+HOST = torch.device("cpu")  # where every bundle's f32 masters live
+
+# AdamW's fine-tune holds the f32 params, their gradients and both moments
+RETRAIN_BYTES_PER_PARAM = 16
+
+
+def device_bytes(device: torch.device) -> int:
+    """The memory of ``device``: the card's, or the host's physical memory."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def check_retrain_fits(cfg: "ServerConfig", lm: LMConfig, device: torch.device) -> None:
+    """Refuse ``repair="retrain"`` where the fine-tune cannot fit on
+    ``device``: AdamW over the f32 masters needs
+    :data:`RETRAIN_BYTES_PER_PARAM` bytes a param before any activation
+    (deepseek-moe-16b at full width: 262 GB).  The count is taken on
+    ``meta``, so the check allocates nothing."""
+    if cfg.repair != "retrain" or cfg.retrain_steps <= 0:
+        return
+    need, have = RETRAIN_BYTES_PER_PARAM * lm.n_params(), device_bytes(device)
+    if need > have:
+        raise ValueError(
+            f"{lm.name}: repair='retrain' fine-tunes the f32 masters with AdamW on {device}, "
+            f"{need:,} bytes of params, gradients and moments against the device's {have:,}"
+        )
+
+
+def _host_and_work(dtype):
+    """:func:`init_params`'s ``block_fn`` of a bundle: each leaf of a piece
+    as it is drawn on the device becomes the pair (its f32 copy on the host,
+    its ``dtype`` working copy on the device), as :func:`cast_params` makes
+    it."""
+    def one(a):
+        return a.to(HOST), (a.to(dtype) if a.is_floating_point() else a)
+
+    return lambda piece: tree_map(one, piece)
 
 
 # the dispatches whose step a CUDA graph can hold, and the kernel wrappers a
@@ -279,8 +327,13 @@ class ModelBundle:
 
     ``params``: optional f32 master params in this package's layout (e.g.
     :func:`~repro_torch.models.lm.params_from_numpy` of the JAX params);
-    default random from a ``torch.Generator`` seeded with ``cfg.seed``.
-    The ``lm.dtype`` working copies the step reads are made here, once.
+    default random from a ``torch.Generator`` of the device seeded with
+    ``cfg.seed``, each piece handed on as it is drawn.  The masters
+    (``params``) live in host memory; the ``lm.dtype`` working copies the
+    step reads (``work``) are cast on the device, once.  So the card never
+    holds the f32 tree: at most the working copies and one piece in f32
+    (deepseek-moe-16b at full width: 32.75 GB and an MoE layer's 2.35 GB,
+    where both copies would take 98.3 GB).
 
     The bundle holds one FTContext, whose fault table and repair plan are
     swapped in place, and one :class:`CapturedStep` per KV cache: each
@@ -292,11 +345,14 @@ class ModelBundle:
         self.device = resolve_device(cfg.device)
         self.lm = lm or get_smoke_config(cfg.arch)
         self.hyca = cfg.hyca()
+        check_retrain_fits(cfg, self.lm, self.device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-            params = init_params(gen, self.lm)
-        self.params = tree_map(lambda a: a.to(self.device), params)
-        self.work = cast_params(self.params, self.lm.dtype)
+            pairs = init_params(gen, self.lm, block_fn=_host_and_work(self.lm.dtype))
+            self.params, self.work = pick(pairs, 0), pick(pairs, 1)
+        else:
+            self.params = tree_map(lambda a: a.to(HOST), params)
+            self.work = cast_params(params, self.lm.dtype, device=self.device)
         self.max_faults = cfg.rows * cfg.cols
         self.empty_state = empty_fault_state(self.max_faults, device=self.device)
         # every step carries a plan: the identity until a repair hook swaps
@@ -320,6 +376,11 @@ class ModelBundle:
         # are rebuilt once per swap rather than once per step
         self.swaps = 0
         self._steps = weakref.WeakValueDictionary()  # id(cache) -> CapturedStep
+
+    @property
+    def master_bytes(self) -> int:
+        """Host bytes of the f32 masters."""
+        return sum(a.numel() * a.element_size() for a in tree_leaves(self.params))
 
     @property
     def salience(self) -> np.ndarray:
@@ -410,6 +471,8 @@ class FaultTolerantServer:
         if cfg.repair not in ("none", "remap", "retrain"):
             raise ValueError(f"unknown repair mode {cfg.repair!r}")
         self.cfg = cfg
+        if bundle is not None:
+            check_retrain_fits(cfg, bundle.lm, bundle.device)
         self.bundle = bundle or ModelBundle(cfg)
         self.lm = self.bundle.lm
         self.device = self.bundle.device
@@ -531,13 +594,14 @@ class FaultTolerantServer:
     def apply_repair(self, *, plan=None, params: Params | None = None) -> None:
         """Swap a repair plan and/or repaired f32 master params into the
         running server.  The next step swaps a plan into the bundle's context
-        in place, with no recapture; params become this server's own working
-        copies, which its step recaptures over once."""
+        in place, with no recapture; params, wherever they are, become this
+        server's own working copies, cast on its device, which its step
+        recaptures over once, and its masters, kept on the host."""
         if plan is not None:
             self.plan = plan
         if params is not None:
-            self.master_params = params
-            self.params = cast_params(params, self.lm.dtype)
+            self.params = cast_params(params, self.lm.dtype, device=self.device)
+            self.master_params = tree_map(lambda a: a.to(HOST), params)
             self.decode.swap_params(self.params)
 
     def _maybe_repair(self) -> None:
@@ -557,8 +621,9 @@ class FaultTolerantServer:
         params = None
         if self.cfg.repair == "retrain" and self.cfg.retrain_steps > 0:
             t0 = time.perf_counter()
+            # the fine-tune runs on the server's device: the host masters go there for it
             params, report = retrain(
-                self.master_params, self.lm,
+                tree_map(lambda a: a.to(self.device), self.master_params), self.lm,
                 hyca=self.bundle.hyca,
                 state=self.manager.confirmed_state,
                 plan=plan,

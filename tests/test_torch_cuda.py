@@ -514,6 +514,12 @@ def test_retrain_server_recaptures_once_and_its_sibling_serves_as_before_on_the_
     after, after_logits = serve("remap")
     assert rt.repair_events[0]["retrained"] and rt.decode.captures == 2 and eager.decode.captures == 0
     assert rt.params is not bundle.work and rt.decode.params is rt.params
+    # fine-tuned on the card from the host masters; the repaired masters back on the host
+    from repro_torch.tree import tree_leaves
+
+    assert rt.retrain_reports[0]["device"].startswith("cuda")
+    assert all(a.device.type == "cpu" and a.dtype == torch.float32 for a in tree_leaves(rt.master_params))
+    assert all(a.device.type == "cuda" for a in tree_leaves(rt.params))
     assert all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(rt_logits, eager_logits))
     assert before.decode.captures == after.decode.captures == 1
     assert all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(before_logits, after_logits))
@@ -729,3 +735,48 @@ def test_hyca_matmul_batched_per_config_w_on_the_card():
     out = {d: TE.hyca_matmul_batched(x.to(d), w.to(d), states[d], cfg=cfg, plans=plans[d], x_axis=None, w_axis=0)
            for d in states}
     assert torch.equal(out["cuda"].cpu(), out["cpu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_bundle_keeps_masters_on_the_host_on_the_card(arch):
+    """A bundle on the card: its f32 masters on the host and its working
+    copies on the card are, bit for bit, ``init_params`` drawn from the
+    card's generator and ``cast_params`` on the card; while it is built the
+    card holds the working copies and one f32 piece at most, never the f32
+    tree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm as TL
+    from repro_torch.serving import ModelBundle, ServerConfig
+    from repro_torch.tree import tree_leaves
+
+    lm = get_smoke_config(arch)
+    cfg = ServerConfig(arch=arch, device="cuda", dispatch="fused", n_slots=4, smax=32, rows=4, cols=4, seed=3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = ModelBundle(cfg, lm=lm)
+    torch.cuda.synchronize()
+    after, peak = torch.cuda.memory_allocated() - base, torch.cuda.max_memory_allocated() - base
+    want = TL.init_params(torch.Generator(device="cuda").manual_seed(3), lm)
+    work = TL.cast_params(want, lm.dtype)
+
+    def same(a, b):
+        ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+
+    assert all(a.device.type == "cpu" and same(a, b.cpu()) for a, b in zip(tree_leaves(bundle.params),
+                                                                          tree_leaves(want)))
+    assert all(a.device.type == "cuda" and same(a, b) for a, b in zip(tree_leaves(bundle.work), tree_leaves(work)))
+
+    # the caching allocator's blocks: 512-byte multiples
+    def alloc(leaves, size=None):
+        return sum(-(-a.numel() * (size or a.element_size()) // 512) * 512 for a in leaves)
+
+    work_alloc = alloc(tree_leaves(bundle.work))
+    pieces = [v[0] if k in ("blocks", "dense_blocks") else v for k, v in want.items()]
+    biggest = max(alloc(tree_leaves(p), 4) for p in pieces)
+    assert after < work_alloc + 2**20  # no f32 master stays on the card (the context's tables: under 1 MiB)
+    assert peak <= work_alloc + 2 * biggest + 2**20  # one f32 piece at a time, and one leaf's draw

@@ -87,6 +87,18 @@ PLANS = [
     ("gate_up_2048x8192", 1, 4, 2048, 8192, "n_fast", 1, 64),
     ("down_8192x2048", 1, 4, 8192, 2048, "n_fast", 2, 64),
     ("head_2048x32000", 1, 4, 2048, 32000, "k_fast", 1, 32),
+    # deepseek-moe-16b: its attention shares zamba2's qkvo_2048x2048; the
+    # dense first layer at K = 10944, the two shared experts as one FFN of
+    # 2816, the router over 64 experts, the untied head (K-fast: x is
+    # 2048 x 4 x 4 B = 32 KiB), the 64 routed experts of 1408
+    ("dense_gate_up_2048x10944", 1, 4, 2048, 10944, "n_fast", 1, 64),
+    ("dense_down_10944x2048", 1, 4, 10944, 2048, "n_fast", 2, 64),
+    ("shared_gate_up_2048x2816", 1, 4, 2048, 2816, "n_fast", 2, 64),
+    ("shared_down_2816x2048", 1, 4, 2816, 2048, "n_fast", 2, 64),
+    ("router_2048x64", 1, 4, 2048, 64, "n_fast", 8, 64),
+    ("head_2048x102400", 1, 4, 2048, 102400, "k_fast", 1, 32),
+    ("gate_up_64x2048x1408", 64, 4, 2048, 1408, "n_fast", 1, 64),
+    ("down_64x1408x2048", 64, 4, 1408, 2048, "n_fast", 1, 64),
 ]
 
 
@@ -128,7 +140,7 @@ def _full_width(cs, arch: str):
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-3b-a800m", "granite-8b", "starcoder2-3b",
                                   "minicpm3-4b", "llava-next-mistral-7b", "whisper-tiny", "rwkv6-7b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "deepseek-moe-16b"])
 def test_decode_shapes_are_the_decode_steps(arch):
     """chip_smoke.py's DECODE_SHAPES and EXPERT_SHAPES, (M, K, N) and
     launches, are the full-width decode step's protected calls as recorded
@@ -140,7 +152,8 @@ def test_decode_shapes_are_the_decode_steps(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-3b-a800m", "minicpm3-4b",
-                                  "llava-next-mistral-7b", "whisper-tiny", "rwkv6-7b", "zamba2-1.2b"])
+                                  "llava-next-mistral-7b", "whisper-tiny", "rwkv6-7b", "zamba2-1.2b",
+                                  "deepseek-moe-16b"])
 def test_prefill_shapes_are_the_prefills(arch):
     """chip_smoke.py's PREFILL_SHAPES and PREFILL_EXPERT_SHAPES are the
     full-width fused prefill's protected calls at PREFILL's (B, S), with
