@@ -129,8 +129,8 @@ Phases, each printed on its own line; any failure exits non-zero:
      the protected scenario bitwise as before with one capture;
      train_step — launch/train.py's step at the reference CLI's defaults
      (batch 8, seq 128, 2 microbatches, lr 1e-3, 4 seeded faults on the
-     32 x 32 array, twopass, remat on), in deterministic mode with TF32
-     off: 5 steps with finite losses and gnorm > 0, the params after 2
+     32 x 32 array, twopass, remat on) at full width, cut to TRAIN_LAYERS
+     of its 24 layers, in deterministic mode with TF32 off: 5 steps with finite losses and gnorm > 0, the params after 2
      steps bitwise those with an empty fault table, different unprotected,
      every frozen leaf bit for bit under a grad mask of ("ffn",), a fused
      train step refused (C5), the step ms, peak memory and device busy
@@ -266,13 +266,13 @@ Phases, each printed on its own line; any failure exits non-zero:
      f32; a fused_block="auto" context on that cache launches the tuned
      plan and a default context ft_plan, each bitwise a direct call.
      dryrun — launch/dryrun.py on the host mesh (meta tensors, full width),
-     qwen1.5-0.5b and granite-moe-3b-a800m at every applicable cell and
-     every other family at decode_32k, in ANALYSIS_WORKERS processes: every
+     qwen1.5-0.5b at every applicable cell and every other family at
+     decode_32k, in ANALYSIS_WORKERS processes: every
      record ok, each cell's trace seconds, FLOPs, bytes and argument and
      output bytes.  dryrun_sharded — the same tool on the 16 x 16 and
      2 x 16 x 16 meshes (DTensors of a fake process group, meta, full
-     width), in the same pool: every config at decode_32k, qwen and
-     granite-moe at every applicable cell; each record's status, trace
+     width), in the same pool: every config at decode_32k, qwen at every
+     applicable cell; each record's status, trace
      seconds, per-device FLOPs and bytes, collective counts and wire bytes
      and its roofline collective term; qwen's decode_32k on 16 x 16 holds
      its dot FLOPs x 256 to the host trace's and its collectives to the
@@ -446,8 +446,12 @@ def per_step(arch: str) -> dict[str, int]:
             "ft_matmul_batched": sum(s[-1] for s in EXPERT_SHAPES[arch])}
 
 
+START = time.perf_counter()
+
+
 def phase(name: str, /, **fields) -> None:
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """One JSON line a phase; ``elapsed_s`` is the script's time so far."""
+    print(json.dumps({"phase": name, **fields, "elapsed_s": round(time.perf_counter() - START, 2)}), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2694,6 +2698,9 @@ def full_width_reference_phase(dev, smi: str, arch: str) -> dict:
 # qwen1.5-0.5b training at the reference CLI's defaults: batch 8, seq 128,
 # 2 microbatches, lr 1e-3, the 32x32 array with 4 seeded faults, twopass
 TRAIN = dict(batch=8, seq=128, n_micro=2, lr=1e-3, faults=4, steps=5, seed=0)
+# its depth: the first 4 of the served bundle's 24 layers, at full width
+# (at 24 layers the phase and the checkpoint's took 266 s of the script on an H100)
+TRAIN_LAYERS = 4
 
 
 class deterministic:
@@ -2721,8 +2728,9 @@ def _trees_equal(a, b) -> bool:
 
 
 def train_phase(dev, smi: str, bundle) -> dict:
-    """qwen1.5-0.5b's train step at full width (``launch/train.py``, the
-    bundle's f32 masters as the params) at the reference CLI's defaults,
+    """qwen1.5-0.5b's train step at full width and ``TRAIN_LAYERS`` deep
+    (``launch/train.py``, the bundle's f32 masters of those layers as the
+    params) at the reference CLI's defaults,
     protected under ``twopass`` with 4 seeded faults on the 32x32 array, in
     deterministic mode with TF32 off: 5 steps (finite losses, gnorm > 0),
     the params after 2 steps bitwise those of a run with an empty fault
@@ -2740,8 +2748,9 @@ def train_phase(dev, smi: str, bundle) -> dict:
     from repro_torch.tree import map_with_path, tree_leaves, tree_map
 
     t0 = time.perf_counter()
-    lm = bundle.lm
-    params = tree_map(lambda a: a.to(dev), bundle.params)  # the f32 masters, from the host
+    lm = dataclasses.replace(bundle.lm, n_layers=TRAIN_LAYERS)
+    masters = {**bundle.params, "blocks": bundle.params["blocks"][:TRAIN_LAYERS]}
+    params = tree_map(lambda a: a.to(dev), masters)  # the f32 masters, from the host
     tc = T.TrainConfig(n_micro=TRAIN["n_micro"], opt=AdamWConfig(lr=TRAIN["lr"]), total_steps=TRAIN["steps"],
                        warmup=max(1, TRAIN["steps"] // 10), hyca_mode="protected", hyca_dispatch="twopass")
     hyca = HyCAConfig(rows=32, cols=32, mode="protected")
@@ -2794,8 +2803,8 @@ def train_phase(dev, smi: str, bundle) -> dict:
                                                                     if not f),
               "train: a frozen leaf moved, or an ffn leaf did not, under grad_mask(('ffn',))")
         del masked, pairs
-        # one step profiled: its device events' time over the unprofiled median step
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # one step profiled (device activity only): its device events' time over the unprofiled median step
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             step(states[2], batches[2], faults)
             torch.cuda.synchronize()
     busy_ms = sum(_self_device_us(e) for e in _device_events(prof.key_averages())) / 1e3
@@ -2806,7 +2815,7 @@ def train_phase(dev, smi: str, bundle) -> dict:
     except ValueError as e:
         refused = "C5" in str(e)
     check(refused, "train: a fused protected train step was not refused (C5)")
-    out = dict(arch=lm.name, layers=lm.n_layers, remat=lm.remat, dtype=str(lm.dtype)[6:], **TRAIN,
+    out = dict(arch=lm.name, layers=lm.n_layers, of_layers=bundle.lm.n_layers, remat=lm.remat, dtype=str(lm.dtype)[6:], **TRAIN,
                dispatch="twopass", array="32x32", capacity=hyca.capacity, deterministic=True,
                tf32=torch.backends.cuda.matmul.allow_tf32, losses=losses,
                gnorm=[m["gnorm"] for m in metrics], lr_by_step=[m["lr"] for m in metrics], step_ms=times,
@@ -2821,7 +2830,7 @@ def train_phase(dev, smi: str, bundle) -> dict:
 
 
 def checkpoint_phase(dev, smi: str, train: dict) -> dict:
-    """The full-width train state after 2 steps saved and restored bit for
+    """The full-width train state (``TRAIN_LAYERS`` deep) after 2 steps saved and restored bit for
     bit; 2 more steps from the restored state bitwise the straight run's 4
     (deterministic mode); a tampered checkpoint re-fetched from a pristine
     copy, then refused with no source; ``memory_fault_records`` of both.
@@ -3162,9 +3171,10 @@ FLEET_PARITY_KEYS = (
 FLEET_BASELINE = dict(goodput_tokens=98047, requests_completed=11556, latency_e2e_p50=14.0, latency_e2e_p99=24.0)
 HEADLINE_AIM_S = 60.0
 # ft_overhead's full mode (48 steps x 8 repeats x 16 slots) on the card, cut
-# to the dense and SSM families: deepseek-moe's eager twopass experts take
-# ~100 s of full mode (106 ms a step), so it runs in quick mode only
-FT_FULL_FAMILIES = ("qwen1.5-0.5b", "rwkv6-7b")
+# to the dense family, whose fused overhead the ROADMAP target reads: the
+# other two run in quick mode only (on an H100, deepseek-moe's eager twopass
+# experts take ~100 s of full mode, 106 ms a step; rwkv6-7b took 35 s of it)
+FT_FULL_FAMILIES = ("qwen1.5-0.5b",)
 
 
 def fleet_cfg(device: str, dispatch: str = "fused"):
@@ -3831,9 +3841,10 @@ def serving_twins_phase(dev, smi) -> dict[str, int]:
 # the analysis tier and the plan autotuner
 # --------------------------------------------------------------------------- #
 ANALYSIS_WORKERS = 6  # the meta dry runs, on the host's cores after the card's timing is done
-# the full-width dry run: qwen1.5-0.5b and granite-moe-3b-a800m at every
-# applicable cell, every other family at decode_32k
-DRYRUN_ALL_CELLS = (QWEN, GRANITE)
+# the full-width dry run: qwen1.5-0.5b at every applicable cell, every other
+# family at decode_32k (beside the H100, granite-moe-3b-a800m's train_4k traced
+# in 93 s on a mesh, its prefill_32k in 20: they are left to the CLI with the others')
+DRYRUN_ALL_CELLS = (QWEN,)
 SERVED_DECODE = ("served_decode", "decode", 96, 4)  # the served step: 4 slots over a 96-row cache
 PROBE_TOL = 1e-9  # the reconstruction against the direct count, relative
 
@@ -3977,8 +3988,8 @@ def analysis_phase(dev, smi: str, served_qwen: dict) -> dict[str, int]:
     candidate plan's time beside ft_plan's pick; every candidate plan
     checked against ft_matmul_ref; an "auto" context launching the tuned
     plan and a default one ft_plan, each bitwise its direct call.
-    dryrun — qwen1.5-0.5b and granite-moe-3b-a800m at every applicable cell
-    and each other family at decode_32k, traced in ANALYSIS_WORKERS
+    dryrun — qwen1.5-0.5b at every applicable cell and each other family
+    at decode_32k, traced in ANALYSIS_WORKERS
     processes on the host mesh and, sharded on DTensors of a fake process
     group, on 16 x 16 and 2 x 16 x 16 (dryrun_sharded, :func:`sharded_checks`):
     status ok, each cell's trace seconds, per-device costs and collectives;
@@ -4025,8 +4036,8 @@ def analysis_phase(dev, smi: str, served_qwen: dict) -> dict[str, int]:
         cells = [(a, c.name) for a in ARCH_IDS for c in applicable_cells(get_config(a))
                  if a in DRYRUN_ALL_CELLS or c.name == "decode_32k"]
         tasks = [(a, s, mk) for a, s in cells for mk in ("host", "single", "multi")]
-        # the longest traces first (granite-moe's sharded train_4k), one a worker at a time
-        tasks.sort(key=lambda t: (t[1] != "train_4k", t[1] != "prefill_32k", t[0] != GRANITE, t[2] == "host"))
+        # the longest traces first (qwen's sharded train_4k), one a worker at a time
+        tasks.sort(key=lambda t: (t[1] != "train_4k", t[1] != "prefill_32k", t[2] == "host"))
         t0 = time.perf_counter()
         with mp.get_context("spawn").Pool(ANALYSIS_WORKERS, initializer=_dryrun_worker_init) as pool:
             pending = pool.map_async(_dryrun_cell, tasks, chunksize=1)

@@ -14,6 +14,8 @@ Both return (cols,) float64 numpy vectors, the planner's input.
 """
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Mapping
 
 import numpy as np
@@ -42,32 +44,47 @@ def _host(a) -> np.ndarray:
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
+# the column blocks of a layer stack's norms, summed side by side
+_THREADS = min(8, os.cpu_count() or 1)
+
+
+def _carried_squares(rows: list, c0: int, c1: int) -> np.ndarray:
+    """Columns ``c0:c1`` of the stacked rows' f32 sums of squares, carried
+    from one layer's rows into the next."""
+    acc = buf = None
+    for r in rows:
+        r = r[:, c0:c1]
+        if acc is None:
+            acc = np.add.reduce(r * r, axis=0)
+            continue
+        if buf is None or buf.shape[0] != r.shape[0] + 1:
+            buf = np.empty((r.shape[0] + 1, c1 - c0), acc.dtype)
+        buf[0] = acc
+        np.multiply(r, r, out=buf[1:])
+        acc = np.add.reduce(buf, axis=0)
+    return acc
+
+
 def _column_norms(layers: list) -> np.ndarray:
     """``np.linalg.norm(stack.reshape(-1, n), axis=0)`` of the leaf stacked
     over ``layers``, bit for bit, one layer at a time: the f32 sums of
     squares are carried from one layer's rows into the next, so the host
     never holds the stack or its squares (deepseek-moe-16b's expert ``down``
     stacks to 19.9 GB).  numpy's reduction over the rows of a matrix adds
-    them one after another, so the carried sum is the stacked one.  A
-    single column is reduced pairwise instead, so it is stacked: a column a
-    layer is small."""
+    them one after another, so the carried sum is the stacked one.  Blocks
+    of at least two columns are summed in threads (numpy lets go of the
+    GIL): a column's sum is its own.  A single column is reduced pairwise
+    instead, so it is stacked: a column a layer is small."""
     rows = [_host(t) for t in layers]
     n = rows[0].shape[-1]
     if n == 1:
         col = np.concatenate([r.reshape(-1, 1) for r in rows])
         return np.linalg.norm(col, axis=0)
-    acc = buf = None
-    for r in rows:
-        r = r.reshape(-1, n)
-        if acc is None:
-            acc = np.add.reduce(r * r, axis=0)
-            continue
-        if buf is None or buf.shape[0] != r.shape[0] + 1:
-            buf = np.empty((r.shape[0] + 1, n), acc.dtype)
-        buf[0] = acc
-        np.multiply(r, r, out=buf[1:])
-        acc = np.add.reduce(buf, axis=0)
-    return np.sqrt(acc)
+    rows = [r.reshape(-1, n) for r in rows]
+    cuts = np.linspace(0, n, min(_THREADS, n // 2) + 1).astype(int)
+    with ThreadPoolExecutor(len(cuts) - 1) as pool:
+        parts = list(pool.map(lambda c: _carried_squares(rows, *c), zip(cuts[:-1], cuts[1:])))
+    return np.sqrt(np.concatenate(parts))
 
 
 def weight_salience(params, cols: int) -> np.ndarray:
