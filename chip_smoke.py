@@ -3407,7 +3407,7 @@ CLI_RUNS = {
     "chaos": ["--chaos-per", "0.2", "--chaos-at", "4", "--dispatch", "fused"],
     "faults64": ["--mode", "protected", "--faults", "64", "--dispatch", "fused"],
 }
-CLI_WALL = ("wall_s", "tokens_per_s")  # the summary's two wall-clock keys
+CLI_WALL = ("wall_s", "tokens_per_s", "host_phase_ms")  # the summary's wall-clock keys
 
 
 def _untimed(summary: dict) -> dict:
@@ -3555,7 +3555,8 @@ def serve_cli_phase(dev, smi) -> dict[str, int]:
         shutil.rmtree(root, ignore_errors=True)
     check(not os.path.exists(root), f"serve_cli: {root} not removed")
     phase("serve_cli", arch="qwen1.5-0.5b (smoke)", argv=CLI_BASE, runs=out, launches=total,
-          equal_to_cpu="every summary key but wall_s and tokens_per_s", protected_equals_off=["twopass", "fused"],
+          equal_to_cpu="every summary key but wall_s, tokens_per_s and host_phase_ms",
+          protected_equals_off=["twopass", "fused"],
           scrape_equals_prom=True, files=written, files_removed=True, card=smi)
     return total
 

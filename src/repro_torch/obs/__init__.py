@@ -11,6 +11,9 @@
     request and fault traces, OTLP-style JSONL with deterministic ids.
   * :mod:`repro_torch.obs.series` — the device-side :class:`SeriesBuffer`
     ring the serving loop records one row a step into.
+  * :mod:`repro_torch.obs.phases` — the serving step's host phase spans
+    (:class:`PhaseClock`): host ms by phase, and ``serve.*`` ranges in a
+    profiler's trace while one records.
   * :mod:`repro_torch.obs.export` / :mod:`repro_torch.obs.schema` — the
     Prometheus text exporter (gauges and latency histograms), the stdlib
     ``/metrics`` endpoint (:mod:`repro_torch.obs.httpd`) and the event

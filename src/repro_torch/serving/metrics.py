@@ -14,6 +14,10 @@ injection, where injection steps are known), suspect latency, repair
 latency, completed scan sweeps, and scan coverage.  ``counters=`` embeds a
 host-folded counter dict (``FaultTolerantServer.counters_host()``).
 
+``phases`` is the server's :class:`~repro_torch.obs.phases.PhaseClock`:
+``summary()["host_phase_ms"]`` gives each phase of the step its mean host
+ms a step over the steps recorded.
+
 The wall clock starts lazily at the first ``record_step``, NOT at
 construction — bundle build and kernel build time between constructing a
 server and stepping it would otherwise inflate ``wall_s`` and deflate
@@ -27,6 +31,7 @@ import time
 import numpy as np
 
 from repro_torch.obs.events import detection_records, latency_summary, repair_records
+from repro_torch.obs.phases import PhaseClock
 from repro_torch.serving.queue import CompletedRequest
 
 
@@ -58,6 +63,7 @@ class ServingMetrics:
         self.log = log
         self.steps: list[StepRecord] = []
         self.completions: list[CompletedRequest] = []
+        self.phases = PhaseClock()
         self._t0: float | None = None      # set at the first record_step
         self._wall: float | None = None
 
@@ -173,6 +179,7 @@ class ServingMetrics:
             "effective_slots_final": self.steps[-1].effective_slots if self.steps else self.n_slots,
             "remapped_final": self.steps[-1].remapped if self.steps else 0,
             "quality_fraction_final": self.steps[-1].quality_fraction if self.steps else 1.0,
+            "host_phase_ms": self.phases.ms_per_step(n_steps),
         }
         if self.log is not None:
             det = detection_records(self.log)

@@ -88,6 +88,7 @@ from repro_torch.models.lm import (
 )
 from repro_torch.obs.counters import Counters, trace_site_calls
 from repro_torch.obs.events import EventLog
+from repro_torch.obs.phases import PhaseClock
 from repro_torch.obs.series import SeriesBuffer, record_step
 from repro_torch.repair.plan import remap_plan
 from repro_torch.repair.remap import weight_salience
@@ -240,7 +241,11 @@ class CapturedStep:
     A replay calls no kernel wrapper, so it adds the launches each wrapper of
     :data:`STEP_KERNELS` counted while the step was captured to its
     ``launches``; the capture itself launches nothing and counts nothing.
-    The counters keep counting the kernels launched on the card."""
+    The counters keep counting the kernels launched on the card.
+
+    A call runs in the host phase ``capture`` (the first call of a captured
+    step) or ``replay`` of ``phases``, the clock of the server that owns the
+    step (:mod:`repro_torch.obs.phases`); the captured body holds no span."""
 
     def __init__(self, bundle: "ModelBundle", cache: Params, *, capture: bool | None = None):
         dev, dispatch = bundle.device, bundle.cfg.dispatch
@@ -263,6 +268,8 @@ class CapturedStep:
         # the server's counters (Counters.values), when it keeps them: each
         # step adds the context's increment, one node of the graph
         self.counters: torch.Tensor | None = None
+        # the host phase clock the call is timed on: the owning server's
+        self.phases = PhaseClock()
 
     def swap_params(self, params: Params) -> None:
         """Read ``params`` (working copies in ``lm.dtype``) from the next
@@ -281,11 +288,14 @@ class CapturedStep:
 
     def __call__(self) -> None:
         if not self.capture:
-            self._body()
+            with self.phases.span("replay"):
+                self._body()
         elif self.graph is None:
-            self._warm_up_and_capture()
+            with self.phases.span("capture"):
+                self._warm_up_and_capture()
         else:
-            self.graph.replay()
+            with self.phases.span("replay"):
+                self.graph.replay()
             self.replays += 1
             for kernel, n in self.deltas.items():
                 kernel.launches += n
@@ -430,10 +440,11 @@ class ModelBundle:
         if params is not step.params:
             raise ValueError("the step reads its own working params (CapturedStep.params: the bundle's "
                              "ModelBundle.work, or those a retrain repair swapped in)")
-        if fstate is not self.ftc.state or plan is not self.ftc.plan:
-            self.ftc.swap(state=fstate, plan=plan)
-            self.swaps += 1
-        step.tokens.copy_(tok)
+        with step.phases.span("feed"):
+            if fstate is not self.ftc.state or plan is not self.ftc.plan:
+                self.ftc.swap(state=fstate, plan=plan)
+                self.swaps += 1
+            step.tokens.copy_(tok)
         step()
         return step.logits, cache
 
@@ -531,6 +542,8 @@ class FaultTolerantServer:
             steps_per_sweep=self.manager.steps_per_sweep,
             log=self.log,
         )
+        # the step's host phases are timed on this server's clock
+        self.decode.phases = self.metrics.phases
         self.step_idx = 0
         self._next_rid = 0
         self._fstate_key: tuple[int, int, int] | None = None
@@ -544,14 +557,15 @@ class FaultTolerantServer:
     # ------------------------------------------------------------------ #
     def submit(self, prompt, max_new_tokens: int, *, deadline_step: int | None = None,
                eos_id: int | None = None, arrival_step: int | None = None) -> int:
-        rid = self._next_rid
-        self._next_rid += 1
-        self.queue.submit(Request(
-            rid=rid, prompt=np.asarray(prompt, np.int32),
-            max_new_tokens=max_new_tokens,
-            arrival_step=self.step_idx if arrival_step is None else arrival_step,
-            deadline_step=deadline_step, eos_id=eos_id,
-        ))
+        with self.metrics.phases.span("submit"):
+            rid = self._next_rid
+            self._next_rid += 1
+            self.queue.submit(Request(
+                rid=rid, prompt=np.asarray(prompt, np.int32),
+                max_new_tokens=max_new_tokens,
+                arrival_step=self.step_idx if arrival_step is None else arrival_step,
+                deadline_step=deadline_step, eos_id=eos_id,
+            ))
         return rid
 
     @property
@@ -665,61 +679,81 @@ class FaultTolerantServer:
 
     # ------------------------------------------------------------------ #
     def step(self) -> list[CompletedRequest]:
+        """One step of the loop (module docstring), each part of it timed in
+        its host phase of ``metrics.phases`` (:mod:`repro_torch.obs.phases`)."""
+        phases = self.metrics.phases
+        with phases.span("step"):
+            return self._step(phases)
+
+    def _step(self, phases: PhaseClock) -> list[CompletedRequest]:
         cfg = self.cfg
         step = self.step_idx
         self.log.step = step
         completed: list[CompletedRequest] = []
 
-        # 1. hardware wearout
-        if cfg.mode != "off" and cfg.fault_rate > 0:
-            self.injector.step(cfg.fault_rate)
+        with phases.span("scan"):
+            # 1. hardware wearout
+            if cfg.mode != "off" and cfg.fault_rate > 0:
+                self.injector.step(cfg.fault_rate)
 
-        # 2. one batched row-block scan step per decode step
-        scan_ok: bool | None = None
-        if cfg.mode == "protected":
-            scan_ok, _ = self.manager.scan_step()
+            # 2. one batched row-block scan step per decode step
+            scan_ok: bool | None = None
+            if cfg.mode == "protected":
+                scan_ok, _ = self.manager.scan_step()
 
-        # 2b. the repair hook: newly REMAPPED faults rebuild the plan, which
-        # this step swaps into the context
-        self._maybe_repair()
+        with phases.span("repair"):
+            # 2b. the repair hook: newly REMAPPED faults rebuild the plan,
+            # which this step swaps into the context
+            self._maybe_repair()
 
-        # 3. degraded capacity -> admission limit
-        eff = self._effective_slots()
-        self.scheduler.set_effective_slots(eff)
+            # 3. degraded capacity -> admission limit
+            eff = self._effective_slots()
+            self.scheduler.set_effective_slots(eff)
 
-        # 4. admission into freed slots (reset their KV cache slots)
-        admitted, rejected = self.scheduler.admit(self.queue, step)
-        completed.extend(rejected)
-        for req in self.queue.drained_expired():
-            completed.append(CompletedRequest(
-                rid=req.rid, tokens=np.zeros(0, np.int32), prompt_len=req.prompt_len,
-                arrival_step=req.arrival_step, admitted_step=None,
-                first_token_step=None, finish_step=step, reason="expired",
-                deadline_step=req.deadline_step,
-            ))
-        for slot in admitted:
-            self.cache = self.bundle.reset_fn(self.cache, slot.index)
+        with phases.span("admit"):
+            # 4. admission into freed slots (reset their KV cache slots)
+            admitted, rejected = self.scheduler.admit(self.queue, step)
+            completed.extend(rejected)
+            for req in self.queue.drained_expired():
+                completed.append(CompletedRequest(
+                    rid=req.rid, tokens=np.zeros(0, np.int32), prompt_len=req.prompt_len,
+                    arrival_step=req.arrival_step, admitted_step=None,
+                    first_token_step=None, finish_step=step, reason="expired",
+                    deadline_step=req.deadline_step,
+                ))
+            for slot in admitted:
+                self.cache = self.bundle.reset_fn(self.cache, slot.index)
 
         # 5. one batched decode over all slots, and its greedy argmax
-        feed = torch.from_numpy(self.scheduler.plan_feed())
-        _, self.cache = self.bundle.step_fn(
-            self.params, self.cache, feed, self._current_fstate(), self.plan,
-        )
-        # the step's one host sync
-        sampled = self.decode.sampled.cpu().numpy()
+        with phases.span("feed"):
+            feed = torch.from_numpy(self.scheduler.plan_feed())
+            fstate = self._current_fstate()
+        _, self.cache = self.bundle.step_fn(self.params, self.cache, feed, fstate, self.plan)
+        with phases.span("sync"):
+            # the step's one host sync
+            sampled = self.decode.sampled.cpu().numpy()
 
-        # 6. advance requests
-        n_active = self.scheduler.active
-        done = self.scheduler.commit(sampled, step)
-        completed.extend(done)
-        n_decode_tokens = self.scheduler.last_step_tokens
+        with phases.span("commit"):
+            # 6. advance requests
+            n_active = self.scheduler.active
+            done = self.scheduler.commit(sampled, step)
+            completed.extend(done)
+            n_decode_tokens = self.scheduler.last_step_tokens
 
+        with phases.span("record"):
+            self._record(step, n_active, eff, int(n_decode_tokens), scan_ok, completed)
+        self.step_idx += 1
+        return completed
+
+    def _record(self, step: int, n_active: int, eff: int, n_decode_tokens: int, scan_ok: bool | None,
+                completed: list[CompletedRequest]) -> None:
+        """The step's :class:`StepRecord` and, with ``series``, its row."""
         self.metrics.record_step(StepRecord(
             step=step,
             active_slots=n_active,
             effective_slots=eff,
             queue_depth=self.queue.depth(),
-            tokens_generated=int(n_decode_tokens),
+            tokens_generated=n_decode_tokens,
             confirmed_faults=self.manager.n_confirmed,
             true_faults=self.injector.n_faults,
             surviving_cols=self.manager.surviving_cols,
@@ -734,7 +768,7 @@ class FaultTolerantServer:
             # every value is already on the host (the StepRecord uses them):
             # one asynchronous copy of the row, no sync
             record_step(self.series, {
-                "tokens": int(n_decode_tokens),
+                "tokens": n_decode_tokens,
                 "queue_depth": self.queue.depth(),
                 "active": n_active,
                 "confirmed": self.manager.n_confirmed,
@@ -745,8 +779,6 @@ class FaultTolerantServer:
                 "capacity_fraction": float(self.manager.capacity_fraction),
                 "quality_fraction": float(self.manager.quality_fraction),
             })
-        self.step_idx += 1
-        return completed
 
     # ------------------------------------------------------------------ #
     def run(self, trace: list[dict] | None = None, *, max_steps: int = 256,

@@ -198,7 +198,7 @@ CLI = {
     "counters": ["--mode", "protected", "--faults", "3", "--counters", "--dispatch", "fused"],
     "faults64": ["--mode", "protected", "--faults", "64"],
 }
-WALL = {"wall_s", "tokens_per_s"}
+WALL = {"wall_s", "tokens_per_s", "host_phase_ms"}
 
 
 def _untimed(summary: dict) -> dict:

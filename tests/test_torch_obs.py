@@ -234,7 +234,8 @@ def test_served_counters_and_series_match_jax(served):
     tsrv, tsum, _ = runs[True]
     assert _events(tsrv.log) == _events(jsrv.log)
     assert tsrv.repair_events and tsrv.repair_events == jsrv.repair_events
-    assert tsum == {**jsum, "wall_s": tsum["wall_s"], "tokens_per_s": tsum["tokens_per_s"]}
+    assert tsum == {**jsum, "wall_s": tsum["wall_s"], "tokens_per_s": tsum["tokens_per_s"],
+                    "host_phase_ms": tsum["host_phase_ms"]}
     assert tsrv.counters_host() == jsrv.counters_host() == tsum["counters"]
     c = tsum["counters"]
     assert c["steps"] == tsum["steps"] and c["pruned_elems"] > 0 and c["corrupted_elems"] > 0
@@ -251,8 +252,9 @@ def test_counters_and_series_off_serve_the_same_bits(served):
     _, _, runs = served
     (on, son, lon), (off, soff, loff) = runs[True], runs[False]
     assert off.counters_host() is None and off.series_host() is None and "counters" not in soff
-    assert {k: v for k, v in son.items() if k not in ("counters", "wall_s", "tokens_per_s")} == \
-        {k: v for k, v in soff.items() if k not in ("wall_s", "tokens_per_s")}
+    wall = ("wall_s", "tokens_per_s", "host_phase_ms")
+    assert {k: v for k, v in son.items() if k not in ("counters",) + wall} == \
+        {k: v for k, v in soff.items() if k not in wall}
     assert len(lon) == len(loff) == son["steps"]
     assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(lon, loff))
 
@@ -269,7 +271,7 @@ def test_spans_timeline_and_prometheus_match_jax(served, tmp_path):
     jtl = JRP.build_timeline(jsrv.log, jsrv.series_host(), start_step=jsrv.series_start_step())
     assert ttl == jtl and ttl["incidents"][0]["repair_plan_step"] is not None
     assert TRP.render_text(ttl) == JRP.render_text(jtl)
-    summary = {k: v for k, v in tsum.items() if k not in ("wall_s", "tokens_per_s")}
+    summary = {k: v for k, v in tsum.items() if k not in ("wall_s", "tokens_per_s", "host_phase_ms")}
     labels = {"arch": QWEN}
     assert TX.prometheus_text(summary, labels=labels) == JX.prometheus_text(summary, labels=labels)
     lists = tsrv.metrics.latency_lists()

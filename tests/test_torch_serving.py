@@ -107,7 +107,7 @@ def test_server_matches_jax(bundles, name):
         assert getattr(tsrv.manager, attr)() == getattr(jsrv.manager, attr)()
     assert tsrv.injector.coords() == jsrv.injector.coords()
     assert np.array_equal(tsrv.manager.hits, jsrv.manager.hits)
-    volatile = {"wall_s", "tokens_per_s"}
+    volatile = {"wall_s", "tokens_per_s", "host_phase_ms"}
     assert {k: v for k, v in tsum.items() if k not in volatile} == \
         {k: v for k, v in jsum.items() if k not in volatile}
 
