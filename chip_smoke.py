@@ -2384,6 +2384,30 @@ PREFILL_EXPERT_SHAPES = {
         ("down_64x240x1408x2048", 64, 240, 1408, 2048, 27),
     ),
 }
+# (name, E, M, K, N, launches per batch) of the benchmark's prefill cells
+# (hyca_bench/traffic/prefill.json: batches of B x S = 8192 tokens, S of 512,
+# 1024 or 2048): E = 1 an ft_matmul call at M = 8192, else ft_matmul_batched
+# with M per expert B x capacity, the same at every S: granite's 48 x 2048,
+# deepseek's 64 x 960.  The heads (M = B, K-fast) are left out.
+BENCH_PREFILL_SHAPES = {
+    GRANITE: (
+        ("q_out_8192x1536x1536", 1, 8192, 1536, 1536, 32 * 2),
+        ("kv_8192x1536x512", 1, 8192, 1536, 512, 32 * 2),
+        ("router_8192x1536x48", 1, 8192, 1536, 48, 32),
+        ("gate_up_48x2048x1536x512", 48, 2048, 1536, 512, 32 * 2),
+        ("down_48x2048x512x1536", 48, 2048, 512, 1536, 32),
+    ),
+    DEEPSEEK: (
+        ("qkvo_8192x2048x2048", 1, 8192, 2048, 2048, 28 * 4),
+        ("dense_gate_up_8192x2048x10944", 1, 8192, 2048, 10944, 2),
+        ("dense_down_8192x10944x2048", 1, 8192, 10944, 2048, 1),
+        ("shared_gate_up_8192x2048x2816", 1, 8192, 2048, 2816, 27 * 2),
+        ("shared_down_8192x2816x2048", 1, 8192, 2816, 2048, 27),
+        ("router_8192x2048x64", 1, 8192, 2048, 64, 27),
+        ("gate_up_64x960x2048x1408", 64, 960, 2048, 1408, 27 * 2),
+        ("down_64x960x1408x2048", 64, 960, 1408, 2048, 27),
+    ),
+}
 # fused against twopass, last-position logits of a full-width bf16 prefill:
 # the two accumulate each product in another order, both store bf16, and the
 # one-ulp differences pass through every layer; a wrong kernel is off by the
@@ -2405,9 +2429,10 @@ TWOPASS_BF16_UNHELD = (DEEPSEEK,)
 def prefill_kernel_checks(dev) -> dict[str, float]:
     """``ft_matmul`` and ``ft_matmul_batched`` against their plain versions
     at every fused prefill's shapes (``PREFILL_SHAPES``; the heads at M = B
-    are decode-sized), bf16 and f32, as :func:`_kernel_checks` holds them at
-    the decode shapes.  Returns each kernel's max |kernel - plain| on random
-    operands."""
+    are decode-sized) and the benchmark's (``BENCH_PREFILL_SHAPES``), bf16
+    and f32, as :func:`_kernel_checks` holds them at the decode shapes: bf16
+    from ``M_TILE`` rows on through the tile kernel.  Returns each kernel's
+    max |kernel - plain| on random operands."""
     from repro_torch.kernels.ft_matmul import (
         ft_matmul, ft_matmul_batched, ft_matmul_batched_ref, ft_matmul_ref, plan_of,
     )
@@ -2417,8 +2442,9 @@ def prefill_kernel_checks(dev) -> dict[str, float]:
     launches0 = {name: k.launches for name, k in _kernels().items()}
     errs, plans, max_abs = {}, {}, {"ft_matmul": 0.0, "ft_matmul_batched": 0.0}
     # zamba2 and deepseek share qkvo_2048x2048x2048: each shape is checked once
-    for name, m, k, n in dict.fromkeys(s[:4] for a in PREFILL_SHAPES for s in PREFILL_SHAPES[a]
-                                       if not s[0].startswith("head")):
+    dense = [s[:4] for a in PREFILL_SHAPES for s in PREFILL_SHAPES[a] if not s[0].startswith("head")]
+    dense += [(s[0], s[2], s[3], s[4]) for a in BENCH_PREFILL_SHAPES for s in BENCH_PREFILL_SHAPES[a] if s[1] == 1]
+    for name, m, k, n in dict.fromkeys(dense):
         for dtype in (torch.bfloat16, torch.float32):
             def operands(kind: str):
                 return (_draw(g, dev, dtype, kind, (m, k), 1.0, kind == "frac_x"),
@@ -2427,7 +2453,10 @@ def prefill_kernel_checks(dev) -> dict[str, float]:
                                                                    operands, and_g, or_g, dtype)
             max_abs["ft_matmul"] = max(max_abs["ft_matmul"], err)
             plans[name] = _plan_str(plan_of(*operands("integer")))
-    for b, (name, e, m, k, n, _) in [(PREFILL[a][0], s) for a in PREFILL for s in PREFILL_EXPERT_SHAPES[a]]:
+    experts = [(PREFILL[a][0], s) for a in PREFILL for s in PREFILL_EXPERT_SHAPES[a]]
+    # the benchmark's experts drawn as at S = 512: 16 sequences of m / 16 slots
+    experts += [(8192 // 512, s) for a in BENCH_PREFILL_SHAPES for s in BENCH_PREFILL_SHAPES[a] if s[1] > 1]
+    for b, (name, e, m, k, n, _) in experts:
         for dtype in (torch.bfloat16, torch.float32):
             def operands(kind: str):
                 # the (b, e, c, d) dispatch layout, copied to (e, b·c, d) as FTContext.einsum does
@@ -2503,12 +2532,15 @@ def prefill_modes(bundle, batch: dict, dev) -> dict:
     for mode, ctx in ctxs.items():
         for k in kernels.values():
             k.launches = 0
+            if hasattr(k, "tile_launches"):
+                k.tile_launches = 0
         t1 = time.perf_counter()
         out[mode] = prefill(ctx)
         ms[mode] = 1e3 * (time.perf_counter() - t1)
         counts = {name: k.launches for name, k in kernels.items()}
         if mode == "protected":
             launches = counts
+            tile_launches = {name: k.tile_launches for name, k in kernels.items() if hasattr(k, "tile_launches")}
         check(counts == {**dict.fromkeys(kernels, 0), **want}, f"{arch} prefill {mode}: launched {counts}, want {want}")
     off, prot, unprot = out["off"], out["protected"], out["unprotected"]
     b = batch["tokens"].shape[0]
@@ -2542,8 +2574,8 @@ def prefill_modes(bundle, batch: dict, dev) -> dict:
         flips = {k: [int((f != t).any(-1).sum()) for f, t in zip(routes["fused"], routes[k])] for k in ("twopass", "plain")}
         extra = dict(twopass_routing_flips=flips["twopass"], plain_routing_flips=flips["plain"],
                      routed_tokens=int(routes["fused"][0].shape[0]), plain_rel=plain_rel, plain_agree=plain_agree)
-    return dict(ctxs=ctxs, prefill=prefill, logits=out, ms=ms, launches=launches, twopass_rel=rel,
-                twopass_agree=agree, twopass_ms=twopass_ms, twopass_held=held, **extra)
+    return dict(ctxs=ctxs, prefill=prefill, logits=out, ms=ms, launches=launches, tile_launches=tile_launches,
+                twopass_rel=rel, twopass_agree=agree, twopass_ms=twopass_ms, twopass_held=held, **extra)
 
 
 def _recording_routes(ctx, lm, log: list):
@@ -2585,7 +2617,7 @@ def prefill_phase(dev, smi: str, bundle) -> dict[str, dict]:
         t["launches"] = r["launches"][name]
     b, s = PREFILL[arch]
     phase("prefill_fused", arch=arch, batch=b, seq=s, last_only=True, inputs=sorted(batch),
-          launches=r["launches"], protected_equals_off=True, unprotected_differs=True,
+          launches=r["launches"], tile_launches=r["tile_launches"], protected_equals_off=True, unprotected_differs=True,
           fused_vs_twopass_over_max_logit=r["twopass_rel"], fused_vs_twopass_tol=TWOPASS_PREFILL_TOL,
           fused_twopass_argmax_agree=r["twopass_agree"], fused_vs_twopass_held=r["twopass_held"],
           **{k: r[k] for k in ("twopass_routing_flips", "plain_routing_flips", "routed_tokens", "plain_rel",
@@ -3913,11 +3945,11 @@ def autotune_checks(dev, shapes, cache: dict) -> float:
     max_err = 0.0
     for name, m, k, n, layout in shapes:
         check(key(m, n, k, torch.bfloat16, layout) in cache, f"{name}: no cache entry")
-        for plan in plan_candidates(layout):
-            def kernel(x, w, a, o, out_dtype=torch.float32, plan=plan):
-                return ft_matmul(x, w, a, o, out_dtype=out_dtype, plan=plan)
+        for dtype in (torch.bfloat16, torch.float32):
+            for plan in plan_candidates(layout, dtype):  # the tile plan for bf16 only
+                def kernel(x, w, a, o, out_dtype=torch.float32, plan=plan):
+                    return ft_matmul(x, w, a, o, out_dtype=out_dtype, plan=plan)
 
-            for dtype in (torch.bfloat16, torch.float32):
                 def operands(kind: str):
                     x = _draw(g, dev, dtype, kind, (m, k), 1.0, kind == "frac_x")
                     fw = kind == "frac_w"
@@ -4007,7 +4039,7 @@ def analysis_phase(dev, smi: str, served_qwen: dict) -> dict[str, int]:
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.configs.shapes import SHAPES, ShapeCell, applicable_cells
     from repro_torch.kernels import autotune
-    from repro_torch.kernels.ft_matmul import ft_matmul, ft_plan
+    from repro_torch.kernels.ft_matmul import ft_matmul, ft_plan, plan_label
     from repro_torch.launch import dryrun, probes, roofline
     from repro_torch.launch.mesh import make_production_mesh
 
@@ -4023,8 +4055,8 @@ def analysis_phase(dev, smi: str, served_qwen: dict) -> dict[str, int]:
         for name, m, k, n, layout in shapes:
             plan, ms, times = autotune.autotune_plan(m, n, k, dtype=torch.bfloat16, layout=layout, device=str(dev))
             rule = ft_plan(1, m, n, k, torch.bfloat16, layout)
-            table[name] = dict(m=m, k=k, n=n, layout=layout, ms_by_split=times, tuned=_plan_str(plan), tuned_ms=ms,
-                               ft_plan=_plan_str(rule), ft_plan_ms=times[str(rule.split)],
+            table[name] = dict(m=m, k=k, n=n, layout=layout, ms_by_plan=times, tuned=_plan_str(plan), tuned_ms=ms,
+                               ft_plan=_plan_str(rule), ft_plan_ms=times[plan_label(rule)],
                                ft_plan_is_fastest=plan == rule)
         launches = {"ft_matmul": ft_matmul.launches}
         tune_s = time.perf_counter() - t0
@@ -4045,7 +4077,8 @@ def analysis_phase(dev, smi: str, served_qwen: dict) -> dict[str, int]:
             # beside the dry runs: the candidate plans' checks, the contexts, the specs and the probes
             max_err = autotune_checks(dev, shapes, cache)
             contexts = auto_context_checks(dev, shapes, cache)
-            phase("autotune_checks", plans=sum(len(autotune.plan_candidates(s[4])) for s in shapes),
+            phase("autotune_checks", plans=sum(len(autotune.plan_candidates(s[4], d)) for s in shapes
+                                               for d in (torch.bfloat16, torch.float32)),
                   dtypes=["bf16", "f32"], bitwise=["integer", "f32 frac_x", "f32 frac_w", "bf16 store = f32 cast"],
                   random_tol=f"{RAND_TOL}*(|x|@|w|)", max_abs_err=max_err, contexts=contexts)
             specs = {}

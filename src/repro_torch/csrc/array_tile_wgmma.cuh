@@ -4,7 +4,8 @@
 // f32 accumulate in registers) on one 64-row x 128-column piece of x @ w.
 //
 // Shared by os_array_matmul.cu (pass 1 of the paper's two-pass pipeline) and
-// dppu_recompute.cu (pass 2) for bf16 operands, it is the main loop of the
+// dppu_recompute.cu (pass 2) for bf16 operands, and by ft_matmul.cu's tile
+// kernel (the fused matmul at prefill row counts), it is the main loop of the
 // Pallas TPU kernels src/repro/kernels/os_array_matmul.py::os_array_matmul
 // and src/repro/kernels/dppu_recompute.py::dppu_recompute, which those two
 // files replace; f32 and int8 operands keep the CUDA-core loop of
@@ -137,6 +138,14 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// 3-D TMA load of the box at (c0 inner, c1 outer, c2 slice) into shared memory.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
 __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
@@ -180,22 +189,31 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[ACC], uint64_t da, u
 }
 
 // The producer warp's elected thread: stage k of x rows [m0, m0 + 64 * WGS)
-// and w columns [n0, n0 + 128), for k = 0 .. KT - 1, into the ring.
+// and w columns [n0, n0 + 128), for k = 0 .. KT - 1, into the ring.  With
+// z >= 0 both maps are 3-D and every box lies in their slice z (an expert of
+// a batched call), so a box past the slice's edge is zero-filled, never read
+// from the next slice.
 template <bool W_K_MAJOR, class G>
 __device__ __forceinline__ void produce(typename G::Smem& s, const CUtensorMap* mx, const CUtensorMap* mw,
-                                        int m0, int n0, int KT) {
+                                        int m0, int n0, int KT, int z = -1) {
   for (int kt = 0; kt < KT; ++kt) {
     const int st = kt % G::STAGES;
     if (kt >= G::STAGES) bar_wait(&s.empty[st], ((kt / G::STAGES) & 1) ^ 1);
     bar_expect_tx(&s.full[st], G::WGS * A_BYTES + B_BYTES);
     const int k0 = kt * STAGE_K;
+    auto load = [&](void* dst, const CUtensorMap* map, int c0, int c1) {
+      if (z < 0)
+        tma_load(dst, map, &s.full[st], c0, c1);
+      else
+        tma_load(dst, map, &s.full[st], c0, c1, z);
+    };
 #pragma unroll
-    for (int wg = 0; wg < G::WGS; ++wg) tma_load(s.a[st][wg], mx, &s.full[st], k0, m0 + wg * WG_M);
+    for (int wg = 0; wg < G::WGS; ++wg) load(s.a[st][wg], mx, k0, m0 + wg * WG_M);
     if (W_K_MAJOR) {
-      tma_load(s.b[st], mw, &s.full[st], k0, n0);
+      load(s.b[st], mw, k0, n0);
     } else {
-      tma_load(s.b[st], mw, &s.full[st], n0, k0);
-      tma_load(s.b[st] + ATOM_N * STAGE_K, mw, &s.full[st], n0 + ATOM_N, k0);
+      load(s.b[st], mw, n0, k0);
+      load(s.b[st] + ATOM_N * STAGE_K, mw, n0 + ATOM_N, k0);
     }
   }
 }
@@ -267,6 +285,23 @@ inline bool encode_bf16(CUtensorMap* map, const void* base, uint64_t inner, uint
   const cuuint32_t box[2] = {box_inner, box_outer};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D bf16 tensor map, 128-byte swizzle, zero fill out of bounds: `depth`
+// slices of (inner, outer) at base, the outer stride stride_bytes and the
+// slice stride slice_bytes, in boxes of (box_inner, box_outer, 1).  False when
+// cuTensorMapEncodeTiled refuses it.
+inline bool encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer, uint64_t depth,
+                           uint64_t stride_bytes, uint64_t slice_bytes, uint32_t box_inner, uint32_t box_outer) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {inner, outer, depth};
+  const cuuint64_t strides[2] = {stride_bytes, slice_bytes};
+  const cuuint32_t box[3] = {box_inner, box_outer, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -75,13 +75,21 @@
 //     bits every time;
 //   * ragged N, ragged K inside a rank's slice and ragged M are masked in the
 //     loads (zero-filled copies) and in the store, so the caller pads
-//     nothing; the mask grids are read in the epilogue.
+//     nothing; the mask grids are read in the epilogue;
+//   * at prefill M is every token of the batch (8192 rows, or 960-2048 rows
+//     an expert), and a call does 2 * M FLOPs per weight element: the tensor
+//     cores bound it, and a 4-row block that restreams w per 4 rows runs at
+//     about 2% of that bound.  From M_TILE rows an expert on (the plan's
+//     choice), bf16 x bf16 takes the tile kernel below: 128 x 128 output
+//     tiles on wgmma, fed by TMA, K unsplit.
 // The kernels allocate nothing and launch on the caller's stream.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
+
+#include "array_tile_wgmma.cuh"
 
 namespace {
 
@@ -530,6 +538,109 @@ __global__ void __launch_bounds__(THREADS, 3) ft_strip_mma_kernel(
   finish(own, idx, grp < BM, cs, split, rank, e, m0, n0, M, N, and_grid, or_grid, rows, cols, out, out_bf16);
 }
 
+// ------------------------------------------------------------- tile kernel
+// bf16 x bf16 at prefill row counts (the plan's tile plan: bn = TILE_N), on
+// array_tile_wgmma.cuh's main loop: a block computes a TILE_M x TILE_N tile of
+// one expert's output with two consumer warpgroups on wgmma m64n128k16 (f32
+// accumulators in registers) and one producer warp keeping TMA loads in
+// flight into a ring of 128-byte-swizzled stages.  K is walked from 0 upward
+// in STAGE_K stages, never split, with no atomics: a call gives the same bits
+// every time.  x and w are read through 3-D tensor maps over (E, M, K) and
+// (E, K, N), so a ragged edge of M, N or K is zero-filled within its own
+// expert.  The epilogue is the strip kernels' on each accumulator, from the
+// registers, with the mask grids staged in shared memory once a block.
+//
+// The name: the benchmark finds these launches by kernel name
+// (hyca_bench/harness/trace.py::FT_KERNELS) and grid z, so the tile kernel is
+// an overload of ft_strip_mma_kernel, told apart by its template arguments.
+namespace tc = array_tile_wgmma;
+using TileG = tc::Geometry<2, 3>;  // a 96 KB ring of 3 stages
+constexpr int TILE_M = TileG::WGS * tc::WG_M;  // 128 output rows a block
+constexpr int TILE_N = tc::TILE_N;             // 128 output columns a block
+constexpr int TILE_BLOCKS_PER_SM = 2;          // one block's epilogue overlaps the other's main loop
+constexpr int TILE_CONSUMERS = TileG::WGS * tc::WG_THREADS;
+constexpr int MAX_GRID = 32 * 32;              // mask grids staged in shared memory up to this size
+
+// one output element's epilogue, as the strip kernels' store_out computes it
+__device__ __forceinline__ float masked(float acc, int and_m, int or_m) {
+  return __int_as_float((__float_as_int(acc) & and_m) | or_m);
+}
+
+template <int TM, int TN>
+__global__ void __launch_bounds__(TileG::THREADS, TILE_BLOCKS_PER_SM) ft_strip_mma_kernel(
+    const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw, const int* __restrict__ and_grid,
+    const int* __restrict__ or_grid, void* __restrict__ out, int M, int N, int K, int rows, int cols, int out_bf16) {
+  static_assert(TM == TILE_M && TN == TILE_N, "the tile is the geometry's");
+  extern __shared__ uint8_t smem_raw[];
+  auto& s = tc::aligned_smem<TileG>(smem_raw);
+  __shared__ int grids[2][MAX_GRID];  // and, or
+  __shared__ int pe_col[TN];          // the PE column of each of the tile's columns
+  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * TM, e = blockIdx.z;
+  const int KT = (K + tc::STAGE_K - 1) / tc::STAGE_K;
+  const int tid = threadIdx.x;
+  if (tid == 0) tc::init_barriers<TileG>(s);
+  __syncthreads();
+  if (tid >= TILE_CONSUMERS) {
+    if (tid == TILE_CONSUMERS) tc::produce<false, TileG>(s, &mx, &mw, m0, n0, KT, e);
+    return;
+  }
+  // the consumers stage the grids while the first stages arrive
+  const bool staged = rows * cols <= MAX_GRID;
+  if (staged) {
+    for (int i = tid; i < rows * cols; i += TILE_CONSUMERS) {
+      grids[0][i] = and_grid[i];
+      grids[1][i] = or_grid[i];
+    }
+  }
+  if (tid < TN) pe_col[tid] = (n0 + tid) % cols;
+  const int wg = tid / tc::WG_THREADS;
+  float acc[tc::ACC];
+  tc::consume<false, TileG>(s, wg, KT, acc);
+  asm volatile("bar.sync 1, %0;" ::"n"(TILE_CONSUMERS) : "memory");  // the staged grids are visible
+  const int* ag = staged ? grids[0] : and_grid;
+  const int* og = staged ? grids[1] : or_grid;
+
+  // acc[i] is row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2) and column
+  // 8 (i / 4) + 2 (t % 4) + i % 2 of this warpgroup's 64 x 128 piece
+  const int t = tid % tc::WG_THREADS, lane = t % 32;
+  const int row0 = m0 + wg * tc::WG_M + (t / 32) * 16 + lane / 4;  // the row within the expert
+  const int c0 = 2 * (lane % 4);
+  const bool pairs = (N % 2) == 0;  // (m, n) and (m, n + 1) share one store
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = row0 + 8 * h;
+    if (m >= M) continue;
+    const int pr = (m % rows) * cols;
+    const long long o = ((long long)e * M + m) * N + n0;
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j) {
+      const int c = 8 * j + c0;
+      if (n0 + c >= N) break;
+      const int p0 = pr + pe_col[c], p1 = pr + pe_col[c + 1];
+      const float v0 = masked(acc[4 * j + 2 * h], ag[p0], og[p0]);
+      const float v1 = masked(acc[4 * j + 2 * h + 1], ag[p1], og[p1]);
+      const bool both = n0 + c + 1 < N;
+      if (out_bf16) {
+        __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out) + o + c;
+        if (pairs && both) {
+          *reinterpret_cast<__nv_bfloat162*>(ob) = __halves2bfloat162(__float2bfloat16_rn(v0), __float2bfloat16_rn(v1));
+        } else {
+          ob[0] = __float2bfloat16_rn(v0);
+          if (both) ob[1] = __float2bfloat16_rn(v1);
+        }
+      } else {
+        float* of = static_cast<float*>(out) + o + c;
+        if (pairs && both) {
+          *reinterpret_cast<float2*>(of) = make_float2(v0, v1);
+        } else {
+          of[0] = v0;
+          if (both) of[1] = v1;
+        }
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------- K-fast kernel
 // w (K, N) with strides (1, swn): column n is the contiguous row n of the
 // table.  Warp q of block b owns columns b * KF_BLOCK_COLS + q * KF_COLS + c.
@@ -699,14 +810,39 @@ cudaError_t launch_strip(const Args& a, cudaStream_t stream) {
                         a.swk, a.swn, a.rows, a.cols, a.out_bf16);
 }
 
+// the strip kernel of the ft_strip_mma_kernel overloads
+using StripMmaKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const int*, const int*, void*, int, int,
+                                int, int, long long, long long, long long, long long, long long, int, int, int);
+
 cudaError_t launch_strip_mma(const Args& a, cudaStream_t stream) {
   constexpr int smem = MmaStrip::SMEM;
   static bool sized = false;
-  const auto kernel = ft_strip_mma_kernel;
+  const StripMmaKernel kernel = ft_strip_mma_kernel;
   if (const cudaError_t err = opt_in(kernel, smem, sized)) return err;
   return launch_cluster(kernel, smem, a, stream, static_cast<const __nv_bfloat16*>(a.x),
                         static_cast<const __nv_bfloat16*>(a.w), a.and_grid, a.or_grid, a.out, a.M, a.N, a.K,
                         a.split, a.sxe, a.sxm, a.sxk, a.swe, a.swk, a.rows, a.cols, a.out_bf16);
+}
+
+// The tile kernel: grid (N tiles, M tiles, E), one launch.  x's map is over
+// (E, M, K), w's over (E, K, N); both need unit stride on their inner axis,
+// a 16-byte aligned base and 16-byte multiples for the other strides (the
+// wrapper copies an x that has not).  A single expert's slice stride is
+// never read, so the call of ft_matmul (E = 1) gives it the slice's size.
+cudaError_t launch_tile(const Args& a, cudaStream_t stream) {
+  const long long sxe = a.E > 1 ? a.sxe : a.sxm * a.M, swe = a.E > 1 ? a.swe : a.swk * a.K;
+  CUtensorMap mx, mw;
+  if (a.split != 1 || a.sxk != 1 || a.swn != 1 ||
+      !tc::encode_bf16_3d(&mx, a.x, a.K, a.M, a.E, 2ull * a.sxm, 2ull * sxe, tc::STAGE_K, tc::WG_M) ||
+      !tc::encode_bf16_3d(&mw, a.w, a.N, a.K, a.E, 2ull * a.swk, 2ull * swe, tc::ATOM_N, tc::STAGE_K))
+    return cudaErrorInvalidValue;
+  static bool sized = false;
+  const auto kernel = ft_strip_mma_kernel<TILE_M, TILE_N>;
+  if (const cudaError_t err = opt_in(kernel, (int)TileG::SMEM_BYTES, sized)) return err;
+  const dim3 grid((unsigned)((a.N + TILE_N - 1) / TILE_N), (unsigned)((a.M + TILE_M - 1) / TILE_M), (unsigned)a.E);
+  kernel<<<grid, TileG::THREADS, TileG::SMEM_BYTES, stream>>>(mx, mw, a.and_grid, a.or_grid, a.out, a.M, a.N, a.K,
+                                                              a.rows, a.cols, a.out_bf16);
+  return cudaSuccess;
 }
 
 template <typename XT, typename WT>
@@ -726,6 +862,9 @@ template <typename XT, typename WT>
 cudaError_t launch_layout(const Args& a, int layout, cudaStream_t stream) {
   switch (layout) {
     case N_FAST:
+      if constexpr (std::is_same_v<XT, __nv_bfloat16> && std::is_same_v<WT, __nv_bfloat16>) {
+        if (a.bn == TILE_N) return launch_tile(a, stream);
+      }
       if (a.swn != 1 || a.bn != STRIP) return cudaErrorInvalidValue;
       if constexpr (std::is_same_v<XT, __nv_bfloat16> && std::is_same_v<WT, __nv_bfloat16>)
         return launch_strip_mma(a, stream);
@@ -766,8 +905,8 @@ int dispatch(const Args& a, int x_bf16, int w_bf16, int layout, void* stream) {
 // or_grid: (rows, cols) int32, contiguous.  out: (M, N) contiguous, float32
 // (out_bf16 = 0) or bfloat16 (1).  layout (0 N-fast, 1 K-fast, 2 scalar) and
 // split (the cluster size along K, 1..8) and bn (output columns a block: 64
-// or 256 for the strip kernel, 32 for K-fast) are the caller's plan.  Returns the
-// launch's CUDA error (0 on success).
+// for the strip kernels, 128 for the tile kernel, 32 for K-fast) are the
+// caller's plan.  Returns the launch's CUDA error (0 on success).
 extern "C" int ft_matmul_launch(const void* x, const void* w, const void* and_grid,
                                 const void* or_grid, void* out, int M, int N, int K,
                                 long long sxm, long long sxk, long long swk, long long swn,

@@ -4,13 +4,14 @@ The kernels' launch plan (:class:`~repro_torch.kernels.ft_matmul.FTPlan`)
 is a fixed rule, :func:`~repro_torch.kernels.ft_matmul.ft_plan`, of the
 shape, ``w``'s dtype and layout.  This module times every plan the kernels
 take for one shape (:func:`~repro_torch.kernels.ft_matmul.plan_candidates`:
-the strip layouts at each cluster split, the K-fast layout at its single
-plan) and keeps the fastest in a JSON cache keyed
-``"{m}x{n}x{k}:{dtype}:{layout}:cuda"`` (``dtype`` is ``w``'s):
+the strip layouts at each cluster split, the tile plan for a bf16 ``n_fast``
+``w``, the K-fast layout at its single plan) and keeps the fastest in a JSON
+cache keyed ``"{m}x{n}x{k}:{dtype}:{layout}:cuda"`` (``dtype`` is ``w``'s),
+each candidate's time under its :func:`~repro_torch.kernels.ft_matmul.plan_label`:
 
     {
       "4x2816x1024:bfloat16:n_fast:cuda": {"plan": {"layout": "n_fast", "split": 4, "bn": 64},
-                                            "ms": 0.0061, "candidates": {"1": 0.0083, ...}},
+                                            "ms": 0.0061, "candidates": {"1": 0.0083, ..., "tile": 0.0210}},
       ...
     }
 
@@ -21,9 +22,9 @@ TPU entries the port does not read.
 
 Only a context built with ``fused_block="auto"``
 (:func:`~repro_torch.core.ftcontext.build_ftcontext`) reads the cache; the
-default context and every served path keep ``ft_plan``.  A split changes the
-order of the K sum, so a tuned plan's float output is not bitwise
-``ft_plan``'s.
+default context and every served path keep ``ft_plan``.  A split, or the
+other kernel, changes the order of the K sum, so a tuned plan's float output
+is not bitwise ``ft_plan``'s.
 
 Each candidate is timed on the card: a run of calls captured as one CUDA
 graph (the served step is one), replayed between CUDA events, the min over
@@ -47,7 +48,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.kernels.ft_matmul import FTPlan, ft_matmul, ft_plan, plan_candidates, w_layout
+from repro_torch.kernels.ft_matmul import COUNTERS, FTPlan, ft_matmul, ft_plan, plan_candidates, plan_label, w_layout
 
 _CACHE: dict[str, dict] | None = None
 _CACHE_PATH: str | None = None
@@ -121,18 +122,18 @@ def resolve_plan(m: int, n: int, k: int, dtype: torch.dtype, layout: str) -> FTP
     """The ``fused_block="auto"`` lookup: the cache's plan for this shape,
     else the fixed rule ``ft_plan``."""
     plan = _plan_of_entry(load_cache().get(key(m, n, k, dtype, layout)))
-    if plan is not None and plan.layout == layout:
+    if plan is not None and plan in plan_candidates(layout, dtype):
         return plan
     return ft_plan(1, m, n, k, dtype, layout)
 
 
 def search(candidates, time_fn: Callable[[FTPlan], float]) -> tuple[FTPlan, float, dict]:
-    """``(best plan, its ms, {split: ms})`` over ``candidates``, each timed
-    once by ``time_fn``; the first of equal times wins."""
+    """``(best plan, its ms, {plan_label: ms})`` over ``candidates``, each
+    timed once by ``time_fn``; the first of equal times wins."""
     best, best_ms, times = None, math.inf, {}
     for plan in candidates:
         ms = float(time_fn(plan))
-        times[str(plan.split)] = ms
+        times[plan_label(plan)] = ms
         if ms < best_ms:
             best, best_ms = plan, ms
     return best, best_ms, times
@@ -167,7 +168,7 @@ def _graph_timer(m: int, n: int, k: int, dtype: torch.dtype, layout: str, device
     weight from device memory, captured as one CUDA graph (the served step
     is one too, so the host's launch work stays out, as it does there) and
     replayed between CUDA events; the min over ``repeats`` replays.  Each
-    replay's launches count on ``ft_matmul.launches``, the capture's not."""
+    replay's launches count on ``ft_matmul``'s counters, the capture's not."""
     elt = torch.empty((), dtype=dtype).element_size()
     copies = max(1, min(64, math.ceil(2 * l2_bytes / (k * n * elt))))
     x, ws = operands(m, n, k, dtype, layout, device, copies=copies)
@@ -181,11 +182,13 @@ def _graph_timer(m: int, n: int, k: int, dtype: torch.dtype, layout: str, device
 
         run()  # warm-up, outside the graph
         torch.cuda.synchronize(device)
-        before = ft_matmul.launches
+        before = {c: getattr(ft_matmul, c) for c in COUNTERS}
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             run()
-        ft_matmul.launches = before  # a capture launches nothing
+        per_replay = {c: getattr(ft_matmul, c) - count for c, count in before.items()}
+        for c, count in before.items():  # a capture launches nothing
+            setattr(ft_matmul, c, count)
         best = math.inf
         for _ in range(repeats):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -193,7 +196,8 @@ def _graph_timer(m: int, n: int, k: int, dtype: torch.dtype, layout: str, device
             graph.replay()
             end.record()
             end.synchronize()
-            ft_matmul.launches += steps
+            for c, n in per_replay.items():
+                setattr(ft_matmul, c, getattr(ft_matmul, c) + n)
             best = min(best, start.elapsed_time(end) / steps)
         del graph
         return best
@@ -206,7 +210,7 @@ def autotune_plan(m: int, n: int, k: int, *, dtype: torch.dtype = torch.bfloat16
                   time_fn: Callable[[FTPlan], float] | None = None) -> tuple[FTPlan, float, dict]:
     """Measured search over the plans of one ``(m, n, k)`` shape with ``w``
     of ``dtype`` in ``layout``; records the winner in the cache (and saves
-    it with ``persist``).  Returns ``(plan, ms, {split: ms})``.  Times the
+    it with ``persist``).  Returns ``(plan, ms, {plan_label: ms})``.  Times the
     CUDA kernel, so it raises without a card; ``time_fn`` replaces the timer
     (a test's stub)."""
     if time_fn is None:
@@ -218,7 +222,7 @@ def autotune_plan(m: int, n: int, k: int, *, dtype: torch.dtype = torch.bfloat16
         from repro_torch.launch.hw import L2_BYTES
 
         time_fn = _graph_timer(m, n, k, dtype, layout, dev, repeats=repeats, steps=steps, l2_bytes=L2_BYTES)
-    best, best_ms, times = search(plan_candidates(layout), time_fn)
+    best, best_ms, times = search(plan_candidates(layout, dtype), time_fn)
     cache = dict(load_cache())
     cache[key(m, n, k, dtype, layout)] = {"plan": {"layout": best.layout, "split": best.split, "bn": best.bn},
                                           "ms": best_ms, "candidates": times}
@@ -245,7 +249,7 @@ def main(argv=None) -> int:
                                     steps=args.steps, repeats=args.repeats)
     rule = ft_plan(1, args.m, args.n, args.k, dtype, args.layout)
     print(f"[autotune] {key(args.m, args.n, args.k, dtype, args.layout)}: {plan} ({ms:.4f} ms); "
-          f"ft_plan {rule} ({times[str(rule.split)]:.4f} ms); by split {times} -> {cache_path()}")
+          f"ft_plan {rule} ({times[plan_label(rule)]:.4f} ms); by plan {times} -> {cache_path()}")
     return 0
 
 

@@ -14,8 +14,9 @@ what the serving path works in.
 
 On the serving path M is the decode batch, so each call is a matrix-vector
 product bound by the bytes of ``w``; ``csrc/ft_matmul.cu`` says how its
-kernels keep those bytes in flight.  :func:`ft_plan` is the launch plan, a
-fixed function of the shape, ``w``'s dtype and ``w``'s layout
+kernels keep those bytes in flight.  At prefill M is every token of the
+batch, and a call is bound by the tensor cores.  :func:`ft_plan` is the
+launch plan, a fixed function of the shape, ``w``'s dtype and ``w``'s layout
 (:func:`w_layout`): never of the card or the masks, so a call's sum order is
 the same on every run:
 
@@ -24,7 +25,10 @@ the same on every run:
   ``split`` ranks (1–8) whose partials rank 0 adds in rank order through
   distributed shared memory; 16-byte ``cp.async`` copies along N into a
   ring in shared memory; bf16 × bf16 multiplies on the tensor cores
-  (``mma.sync``, f32 accumulate), any other dtype pair on the CUDA cores;
+  (``mma.sync``, f32 accumulate), any other dtype pair on the CUDA cores.
+  From :data:`M_TILE` rows (per expert) on, bf16 × bf16 takes the tile plan
+  (:data:`TILE_PLAN`) instead: 128 × 128 output tiles on ``wgmma`` fed by
+  TMA (``csrc/array_tile_wgmma.cuh``), K unsplit;
 * ``k_fast`` — ``w`` the transposed view of a table (strides ``(1, K)``),
   16-byte aligned, as the LM head reads the tied embedding: a warp owns
   whole columns and walks each table row with 16-byte loads; no split;
@@ -42,10 +46,11 @@ per expert: ``out[e, i, j]`` maps to PE(i % rows, j % cols).
 Each wrapper launches its kernel once for CUDA tensors and raises for
 anything it cannot take; for CPU tensors it computes its plain twin
 (:func:`ft_matmul_ref`, :func:`ft_matmul_batched_ref`).  ``ft_matmul.launches``
-and ``ft_matmul_batched.launches`` count kernel launches and nothing else; a
-call made while a CUDA graph is captured launches nothing, so the captured
-serving step (``serving/server.py::CapturedStep``) takes its calls back off
-the counters and adds them on every replay.
+and ``ft_matmul_batched.launches`` count kernel launches and nothing else,
+and ``.tile_launches`` those of them that ran the tile plan; a call made
+while a CUDA graph is captured launches nothing, so the captured serving
+step (``serving/server.py::CapturedStep``) takes its calls back off the
+counters (:data:`COUNTERS`) and adds them on every replay.
 """
 from __future__ import annotations
 
@@ -74,15 +79,28 @@ SPLITS = (1, 2, 4, 8)   # the cluster sizes a strip plan may take
 TARGET_BLOCKS = 64
 MIN_SLICE_BYTES = 8 * 1024
 LAYOUTS = ("n_fast", "k_fast", "scalar")
+TILE_COLS = 128         # tile kernel: output columns per block (and rows)
+# rows per expert from which a bf16 x bf16 call on an n_fast w takes the tile
+# kernel: the smallest M of the sweep from which the tile kernel was the faster
+# at every swept shape (tools/ft_matmul_sweep.py --parts m_sweep on an H100,
+# PERF.md); below it a narrow call (1536 -> 512) fills too few tiles
+M_TILE = 192
+# the wrappers' launch counters: every launch, and the tile plan's
+COUNTERS = ("launches", "tile_launches")
 
 
 @dataclasses.dataclass(frozen=True)
 class FTPlan:
     """How one call launches: ``layout`` (one of :data:`LAYOUTS`), ``split``
-    (the cluster size along K) and ``bn`` (output columns per block)."""
+    (the cluster size along K) and ``bn`` (output columns per block), which
+    names the kernel: ``STRIP`` a strip kernel, ``TILE_COLS`` the tile
+    kernel, ``KFAST_COLS`` the K-fast one."""
     layout: str
     split: int
     bn: int
+
+
+TILE_PLAN = FTPlan("n_fast", 1, TILE_COLS)
 
 
 def w_layout(w: torch.Tensor) -> str:
@@ -105,9 +123,20 @@ def w_layout(w: torch.Tensor) -> str:
 def ft_plan(e: int, m: int, n: int, k: int, dtype: torch.dtype, layout: str) -> FTPlan:
     """The launch plan of an ``(E, M, K) @ (E, K, N)`` call (``e = 1`` for
     :func:`ft_matmul`) with ``w`` of ``dtype`` in ``layout``.  A fixed rule of
-    these arguments alone, so the sum order never depends on the card."""
+    these arguments alone, so the sum order never depends on the card: the
+    tile plan for a bf16 ``n_fast`` ``w`` from :data:`M_TILE` rows per expert
+    on, else a strip plan (:func:`strip_plan`) or the K-fast one."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; known: {LAYOUTS}")
+    if layout == "n_fast" and dtype == torch.bfloat16 and m >= M_TILE:
+        return TILE_PLAN
+    return strip_plan(e, m, n, k, dtype, layout)
+
+
+def strip_plan(e: int, m: int, n: int, k: int, dtype: torch.dtype, layout: str) -> FTPlan:
+    """The plan of the decode-shaped kernels: the K-fast one for a
+    ``k_fast`` ``w``, else a strip kernel split along K while the call has
+    fewer than :data:`TARGET_BLOCKS` blocks."""
     if layout == "k_fast":
         return FTPlan(layout, 1, KFAST_COLS)
     elt = torch.empty((), dtype=dtype).element_size()
@@ -119,38 +148,68 @@ def ft_plan(e: int, m: int, n: int, k: int, dtype: torch.dtype, layout: str) -> 
     return FTPlan(layout, split, STRIP)
 
 
-def plan_candidates(layout: str) -> tuple[FTPlan, ...]:
-    """Every plan the kernels take for ``w`` in ``layout``: a strip layout
-    at each split of :data:`SPLITS`, the K-fast one at its single plan."""
+def plan_candidates(layout: str, dtype: torch.dtype = torch.bfloat16) -> tuple[FTPlan, ...]:
+    """Every plan the kernels take for a ``w`` of ``dtype`` in ``layout``:
+    a strip layout at each split of :data:`SPLITS`, and the tile plan for a
+    bf16 ``n_fast`` ``w``; the K-fast one at its single plan."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; known: {LAYOUTS}")
     if layout == "k_fast":
         return (FTPlan(layout, 1, KFAST_COLS),)
-    return tuple(FTPlan(layout, s, STRIP) for s in SPLITS)
+    strips = tuple(FTPlan(layout, s, STRIP) for s in SPLITS)
+    return strips + (TILE_PLAN,) if layout == "n_fast" and dtype == torch.bfloat16 else strips
+
+
+def plan_label(plan: FTPlan) -> str:
+    """A plan's name among its layout's candidates: ``"tile"``, else its
+    split."""
+    return "tile" if plan == TILE_PLAN else str(plan.split)
 
 
 def validate_plan(plan: FTPlan, w: torch.Tensor) -> FTPlan:
     """``plan`` if the kernels can run it on ``w``: its layout must be
-    :func:`w_layout` of ``w``, its split one of :data:`SPLITS` (1 for
-    ``k_fast``) and its ``bn`` the layout's (``STRIP``, or ``KFAST_COLS`` for
-    ``k_fast``); else ValueError."""
+    :func:`w_layout` of ``w``, and the plan one of :func:`plan_candidates`
+    of that layout and ``w``'s dtype: a split of :data:`SPLITS` at ``bn =
+    STRIP``, the tile plan (bf16 ``n_fast`` only), or the K-fast plan;
+    else ValueError."""
     if not isinstance(plan, FTPlan):
         raise TypeError(f"a plan is an FTPlan, got {plan!r}")
     layout = w_layout(w)
     if plan.layout != layout:
         raise ValueError(f"{plan}: w of shape {tuple(w.shape)} and strides {w.stride()} takes the "
                          f"{layout!r} layout")
-    if plan not in plan_candidates(layout):
-        raise ValueError(f"{plan}: the {layout!r} layout takes {plan_candidates(layout)}")
+    if plan not in plan_candidates(layout, w.dtype):
+        raise ValueError(f"{plan}: the {layout!r} layout of {w.dtype} takes {plan_candidates(layout, w.dtype)}")
     return plan
 
 
 def plan_of(x: torch.Tensor, w: torch.Tensor) -> FTPlan:
     """:func:`ft_plan` of the call ``ft_matmul(x, w)`` (2-D) or
-    ``ft_matmul_batched(x, w)`` (3-D)."""
+    ``ft_matmul_batched(x, w)`` (3-D).  The tile kernel multiplies bf16 by
+    bf16, so an ``x`` of another dtype keeps the strip plan."""
     e = x.shape[0] if x.dim() == 3 else 1
     m, k = x.shape[-2:]
-    return ft_plan(e, m, w.shape[-1], k, w.dtype, w_layout(w))
+    args = (e, m, w.shape[-1], k, w.dtype, w_layout(w))
+    plan = ft_plan(*args)
+    return strip_plan(*args) if plan == TILE_PLAN and x.dtype != torch.bfloat16 else plan
+
+
+def _tile_operand(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the tile kernel's TMA map reads it: unit stride along K, a
+    16-byte aligned base, and every other stride a whole number of 16 bytes
+    that spans the axes inside it (rows, then experts, in memory order).
+    Else a copy into rows padded to 16 bytes, viewed back to K columns."""
+    ok = x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+    inner = x.shape[-1]
+    for size, stride in zip(reversed(x.shape[:-1]), reversed(x.stride()[:-1])):
+        ok = ok and stride % 8 == 0 and stride >= inner
+        inner = stride * size
+    if ok:
+        return x
+    k = x.shape[-1]
+    buf = torch.empty((*x.shape[:-1], -(-k // 8) * 8), dtype=x.dtype, device=x.device)[..., :k]
+    buf.copy_(x)
+    return buf
 
 
 def _check_out_dtype(name: str, out_dtype: torch.dtype) -> None:
@@ -235,6 +294,11 @@ def ft_matmul(x: torch.Tensor, w: torch.Tensor, and_grid: torch.Tensor,
     m, k = x.shape
     n = w.shape[1]
     plan = plan_of(x, w) if plan is None else plan
+    tile = plan == TILE_PLAN
+    if tile:
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"ft_matmul: the tile plan multiplies bf16 by bf16, got x of {x.dtype}")
+        x = _tile_operand(x)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     rc = _lib().ft_matmul_launch(
         x.data_ptr(), w.data_ptr(), ag.data_ptr(), og.data_ptr(), out.data_ptr(),
@@ -246,10 +310,11 @@ def ft_matmul(x: torch.Tensor, w: torch.Tensor, and_grid: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"ft_matmul kernel launch failed: CUDA error {rc} ({plan})")
     ft_matmul.launches += 1
+    ft_matmul.tile_launches += tile
     return out
 
 
-ft_matmul.launches = 0
+ft_matmul.launches = ft_matmul.tile_launches = 0
 
 
 def ft_matmul_batched(x: torch.Tensor, w: torch.Tensor, and_grid: torch.Tensor,
@@ -273,6 +338,9 @@ def ft_matmul_batched(x: torch.Tensor, w: torch.Tensor, and_grid: torch.Tensor,
     e, m, k = x.shape
     n = w.shape[2]
     plan = plan_of(x, w)
+    tile = plan == TILE_PLAN
+    if tile:
+        x = _tile_operand(x)
     out = torch.empty((e, m, n), dtype=out_dtype, device=x.device)
     rc = _lib().ft_matmul_batched_launch(
         x.data_ptr(), w.data_ptr(), ag.data_ptr(), og.data_ptr(), out.data_ptr(),
@@ -284,7 +352,8 @@ def ft_matmul_batched(x: torch.Tensor, w: torch.Tensor, and_grid: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"ft_matmul_batched kernel launch failed: CUDA error {rc} ({plan})")
     ft_matmul_batched.launches += 1
+    ft_matmul_batched.tile_launches += tile
     return out
 
 
-ft_matmul_batched.launches = 0
+ft_matmul_batched.launches = ft_matmul_batched.tile_launches = 0

@@ -82,7 +82,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core.engine import FaultState, HyCAConfig, empty_fault_state, identity_plan
 from repro_torch.core.ftcontext import ProtectPolicy, build_ftcontext
 from repro_torch.core.redundancy import DPPUConfig
-from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_batched
+from repro_torch.kernels.ft_matmul import COUNTERS, ft_matmul, ft_matmul_batched
 from repro_torch.models.lm import (
     LMConfig, Params, cast_params, decode_step, init_cache, init_params, tree_map,
 )
@@ -240,7 +240,8 @@ class CapturedStep:
 
     A replay calls no kernel wrapper, so it adds the launches each wrapper of
     :data:`STEP_KERNELS` counted while the step was captured to its
-    ``launches``; the capture itself launches nothing and counts nothing.
+    counters (``launches``, ``tile_launches``: ``ft_matmul.COUNTERS``); the
+    capture itself launches nothing and counts nothing.
     The counters keep counting the kernels launched on the card.
 
     A call runs in the host phase ``capture`` (the first call of a captured
@@ -264,7 +265,7 @@ class CapturedStep:
         self.captures = self.replays = 0
         self.capture_s: float | None = None     # wall time of the capture
         self.pool_bytes: int | None = None      # device memory the capture reserved
-        self.deltas: dict = {}                  # wrapper -> launches a replay makes
+        self.deltas: dict = {}                  # (wrapper, counter) -> launches a replay makes
         # the server's counters (Counters.values), when it keeps them: each
         # step adds the context's increment, one node of the graph
         self.counters: torch.Tensor | None = None
@@ -297,8 +298,8 @@ class CapturedStep:
             with self.phases.span("replay"):
                 self.graph.replay()
             self.replays += 1
-            for kernel, n in self.deltas.items():
-                kernel.launches += n
+            for (kernel, counter), n in self.deltas.items():
+                setattr(kernel, counter, getattr(kernel, counter) + n)
 
     def _warm_up_and_capture(self) -> None:
         dev = self.bundle.device
@@ -314,7 +315,7 @@ class CapturedStep:
         gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        counted = {k: k.launches for k in STEP_KERNELS}
+        counted = {(k, c): getattr(k, c) for k in STEP_KERNELS for c in COUNTERS}
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
@@ -322,9 +323,9 @@ class CapturedStep:
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.deltas = {k: k.launches - counted[k] for k in STEP_KERNELS}
-        for k in STEP_KERNELS:
-            k.launches = counted[k]
+        self.deltas = {(k, c): getattr(k, c) - n for (k, c), n in counted.items()}
+        for (k, c), n in counted.items():
+            setattr(k, c, n)
         self.graph = graph
         self.captures += 1
 

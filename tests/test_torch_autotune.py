@@ -16,7 +16,8 @@ from repro_torch.core.engine import FaultState, HyCAConfig
 from repro_torch.core.ftcontext import build_ftcontext
 from repro_torch.kernels import autotune as TA
 from repro_torch.kernels.ft_matmul import (
-    KFAST_COLS, STRIP, FTPlan, ft_matmul, ft_matmul_ref, ft_plan, plan_candidates, validate_plan, w_layout,
+    KFAST_COLS, STRIP, TILE_COLS, TILE_PLAN, FTPlan, ft_matmul, ft_matmul_ref, ft_plan, plan_candidates, validate_plan,
+    w_layout,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -69,6 +70,14 @@ def test_validate_plan_refusals():
         validate_plan((8, 128, 128), w)
     assert plan_candidates("k_fast") == (FTPlan("k_fast", 1, KFAST_COLS),)
     assert [p.split for p in plan_candidates("scalar")] == [1, 2, 4, 8]
+    # the tile plan: a bf16 n_fast w only
+    assert validate_plan(TILE_PLAN, w) == TILE_PLAN == FTPlan("n_fast", 1, TILE_COLS)
+    assert plan_candidates("n_fast")[-1] == TILE_PLAN
+    assert TILE_PLAN not in plan_candidates("n_fast", torch.float32) + plan_candidates("scalar")
+    with pytest.raises(ValueError, match="takes"):
+        validate_plan(TILE_PLAN, w.float())
+    with pytest.raises(ValueError, match="takes"):
+        validate_plan(FTPlan("n_fast", 2, TILE_COLS), w)
 
 
 def test_explicit_plan_on_the_cpu_is_checked_then_plain():
@@ -80,24 +89,28 @@ def test_explicit_plan_on_the_cpu_is_checked_then_plain():
     assert torch.equal(ft_matmul(x, w, keep, zero, plan=FTPlan("n_fast", 8, STRIP)), want)
     with pytest.raises(ValueError):
         ft_matmul(x, w, keep, zero, plan=FTPlan("scalar", 1, STRIP))
-    assert ft_matmul.launches == 0
+    with pytest.raises(ValueError):  # an f32 w takes no tile plan
+        ft_matmul(x, w, keep, zero, plan=TILE_PLAN)
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    assert torch.equal(ft_matmul(xb, wb, keep, zero, plan=TILE_PLAN), ft_matmul_ref(xb, wb, keep, zero))
+    assert ft_matmul.launches == ft_matmul.tile_launches == 0
 
 
 def test_resolve_plan_miss_hit_and_the_search_with_a_stub_timer():
     m, n, k = 4, 2816, 1024
     rule = ft_plan(1, m, n, k, torch.bfloat16, "n_fast")
     assert TA.resolve_plan(m, n, k, torch.bfloat16, "n_fast") == rule  # a miss: the fixed rule
-    times = {1: 0.030, 2: 0.012, 4: 0.012, 8: 0.020}
+    times = {"1": 0.030, "2": 0.012, "4": 0.012, "8": 0.020, "tile": 0.025}
     seen = []
 
     def stub(plan):
         seen.append(plan)
-        return times[plan.split]
+        return times["tile" if plan == TILE_PLAN else str(plan.split)]
 
     plan, ms, by_split = TA.autotune_plan(m, n, k, time_fn=stub)
-    assert seen == list(plan_candidates("n_fast"))
+    assert seen == list(plan_candidates("n_fast")) and TILE_PLAN in seen  # the candidates include the tile plan
     assert plan == FTPlan("n_fast", 2, STRIP) and ms == 0.012  # the first of equal times
-    assert by_split == {"1": 0.030, "2": 0.012, "4": 0.012, "8": 0.020}
+    assert by_split == {"1": 0.030, "2": 0.012, "4": 0.012, "8": 0.020, "tile": 0.025}
     assert TA.resolve_plan(m, n, k, torch.bfloat16, "n_fast") == plan
     assert TA.resolve_plan(m, n, k, torch.float32, "n_fast") == ft_plan(1, m, n, k, torch.float32, "n_fast")
     TA.reset_cache()  # persisted: a new process reads it back
@@ -105,6 +118,12 @@ def test_resolve_plan_miss_hit_and_the_search_with_a_stub_timer():
         "layout": "n_fast", "split": 2, "bn": STRIP}
     kplan, _, kt = TA.autotune_plan(4, 151936, 1024, layout="k_fast", time_fn=lambda p: 0.1, persist=False)
     assert kplan == FTPlan("k_fast", 1, KFAST_COLS) and kt == {"1": 0.1}
+    # at a prefill shape the tile plan wins and is cached; an f32 w never sees it
+    tplan, _, tt = TA.autotune_plan(8192, 2048, 2048, time_fn=lambda p: 0.5 if p == TILE_PLAN else 4.0, persist=False)
+    assert tplan == TILE_PLAN and tt["tile"] == 0.5
+    assert TA.resolve_plan(8192, 2048, 2048, torch.bfloat16, "n_fast") == TILE_PLAN
+    fplan, _, ft = TA.autotune_plan(8192, 2048, 2048, dtype=torch.float32, time_fn=lambda p: 1.0, persist=False)
+    assert fplan.bn == STRIP and "tile" not in ft
 
 
 def test_the_search_needs_the_card(monkeypatch):

@@ -329,6 +329,200 @@ def test_bf16_store_is_the_f32_output_cast_on_the_card():
     assert nans > 0  # the stuck exponent bit made NaNs, and they were held
 
 
+# (E, M, K, N) of the tile kernel's checks: the benchmark's prefill shapes
+# (tests/test_torch_ft_plan.py::PREFILL_PLANS; E = 1 an ft_matmul call), then
+# ragged M, N and K: a last row tile of 65 rows (one in its second
+# warpgroup), a 48-column router, K ending inside a 64-deep stage (within
+# each expert for the batched calls), and M = 960, whose last tile holds one
+# warpgroup's rows only
+TILE_SHAPES = [
+    (1, 8192, 1536, 1536), (1, 8192, 1536, 512), (1, 8192, 1536, 48), (48, 2048, 1536, 512), (48, 2048, 512, 1536),
+    (1, 8192, 2048, 2048), (1, 8192, 2048, 10944), (1, 8192, 10944, 2048), (1, 8192, 2048, 2816),
+    (1, 8192, 2816, 2048), (1, 8192, 2048, 64), (64, 960, 2048, 1408), (64, 960, 1408, 2048),
+    (1, 193, 200, 136), (1, 300, 70, 40), (3, 200, 100, 136), (5, 200, 1000, 8), (2, 960, 72, 264),
+]
+
+
+def _tile_call(e, x, w, and_g, or_g, **kw):
+    if e == 1:
+        return TFM.ft_matmul(x[0], w[0], and_g, or_g, **kw), TFM.ft_matmul_ref(x[0], w[0], and_g, or_g, **kw)
+    return TFM.ft_matmul_batched(x, w, and_g, or_g, **kw), TFM.ft_matmul_batched_ref(x, w, and_g, or_g, **kw)
+
+
+@pytest.mark.cuda
+def test_tile_kernel_matches_the_plain_versions_on_the_card():
+    """The tile plan (``M >= M_TILE`` rows per expert, bf16) against the
+    plain versions with TF32 off: bitwise on integer-valued operands (every
+    partial sum exact) at the benchmark's prefill shapes and at ragged M, N
+    and K, with a 4x4 and a 32x32 fault map; one launch a call, each counted
+    as a tile launch.  On random operands within the f32 rounding of a
+    K-long sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    grids4 = _grids_with_exponent_faults(dev)
+    meta = TE.fault_meta_grid(TE.FaultState(torch.tensor([[3, 5], [31, 30]], dtype=torch.int32),
+                                            torch.tensor([30, 31], dtype=torch.int32),
+                                            torch.tensor([1, 0], dtype=torch.int32)).to(dev),
+                              TE.HyCAConfig(32, 32, mode="unprotected"))
+    grids32 = TE.fault_mask_grids(meta)
+    counts = (TFM.ft_matmul.launches, TFM.ft_matmul.tile_launches,
+              TFM.ft_matmul_batched.launches, TFM.ft_matmul_batched.tile_launches)
+    calls = {1: 0, 3: 0}
+    for i, (e, m, k, n) in enumerate(TILE_SHAPES):
+        and_g, or_g = grids32 if i % 2 else grids4
+        x = torch.randint(-4, 5, (e, m, k), generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randint(-4, 5, (e, k, n), generator=g, device=dev).to(torch.bfloat16)
+        assert TFM.plan_of(x if e > 1 else x[0], w if e > 1 else w[0]) == TFM.TILE_PLAN
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got, want = _tile_call(e, x, w, and_g, or_g, out_dtype=out_dtype)
+            calls[1 if e == 1 else 3] += 1
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16)), (e, m, k, n, out_dtype)
+        if m * k * n * e <= 2**35:
+            xr = torch.randn((e, m, k), generator=g, device=dev).to(torch.bfloat16)
+            wr = (torch.randn((e, k, n), generator=g, device=dev) * 0.05).to(torch.bfloat16)
+            keep, zero = torch.full_like(and_g, -1), torch.zeros_like(or_g)
+            got, want = _tile_call(e, xr, wr, keep, zero)
+            calls[1 if e == 1 else 3] += 1
+            scale = torch.matmul(xr.float().abs(), wr.float().abs())
+            scale = scale[0] if e == 1 else scale
+            assert bool(((got - want).abs() <= 2.0**-20 * k * scale).all()), (e, m, k, n)
+    after = (TFM.ft_matmul.launches, TFM.ft_matmul.tile_launches,
+             TFM.ft_matmul_batched.launches, TFM.ft_matmul_batched.tile_launches)
+    assert [a - b for a, b in zip(after, counts)] == [calls[1], calls[1], calls[3], calls[3]]
+
+
+@pytest.mark.cuda
+def test_tile_kernel_reads_strided_and_unaligned_x_on_the_card():
+    """An ``x`` the TMA map cannot read as it lies (a 140-byte row pitch,
+    a base 2 bytes past an aligned one, a stride along K; an expert stack
+    with a 282-byte row pitch) is copied first, and gives the contiguous
+    ``x``'s bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    and_g, or_g = _grids_with_exponent_faults(dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    w = (torch.randn((70, 136), generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    base = torch.randn((300, 141), generator=g, device=dev).to(torch.bfloat16)
+    for x in (base[:, :70], base[:, 1:71], base[:, ::2][:, :70], base[:, :140:2]):
+        assert TFM.plan_of(x, w) == TFM.TILE_PLAN
+        want = TFM.ft_matmul(x.contiguous(), w, and_g, or_g)
+        assert torch.equal(TFM.ft_matmul(x, w, and_g, or_g).view(torch.int32), want.view(torch.int32))
+    x = torch.randn((6, 256, 141), generator=g, device=dev).to(torch.bfloat16)[..., :136]
+    we = (torch.randn((6, 136, 264), generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    assert TFM.plan_of(x, we) == TFM.TILE_PLAN
+    want = TFM.ft_matmul_batched(x.contiguous(), we, and_g, or_g)
+    assert torch.equal(TFM.ft_matmul_batched(x, we, and_g, or_g).view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_tile_kernel_gives_the_same_bits_twice_and_its_bf16_store_is_the_f32_cast_on_the_card():
+    """The tile kernel's sum order is fixed: the same call twice gives the
+    same bits on random operands; the faulted call is the fault-free one
+    with the epilogue applied (the same kernel, other masks); and its bf16
+    store is its f32 output rounded, NaNs from stuck exponent bits
+    included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    and_g, or_g = _grids_with_exponent_faults(dev)
+    keep, zero = torch.full_like(and_g, -1), torch.zeros_like(or_g)
+    g = torch.Generator(device=dev).manual_seed(13)
+    nans = 0
+    for e, m, k, n in ((1, 2048, 2048, 2816), (1, 300, 1000, 136), (64, 240, 1408, 512), (3, 200, 100, 136)):
+        x = torch.randn((e, m, k), generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn((e, k, n), generator=g, device=dev) * 0.05).to(torch.bfloat16)
+        x, w = (x[0], w[0]) if e == 1 else (x, w)
+        fn = TFM.ft_matmul if e == 1 else TFM.ft_matmul_batched
+        first = fn(x, w, keep, zero)
+        assert torch.equal(first.view(torch.int32), fn(x, w, keep, zero).view(torch.int32))
+        faulted = fn(x, w, and_g, or_g)
+        row_res = None if e == 1 else (torch.arange(m, device=dev) % 4)[None, :, None]
+        assert torch.equal(faulted.view(torch.int32),
+                           TE.apply_mask_grids(first, and_g, or_g, row_residue=row_res).view(torch.int32))
+        b16 = fn(x, w, and_g, or_g, out_dtype=torch.bfloat16)
+        assert torch.equal(b16.view(torch.int16), faulted.to(torch.bfloat16).view(torch.int16))
+        nans += int(torch.isnan(faulted).sum())
+    assert nans > 0
+
+
+@pytest.mark.cuda
+def test_tile_kernel_in_a_cuda_graph_replays_as_eager_on_the_card():
+    """Tile-plan calls of both wrappers captured in one CUDA graph: a
+    replay on new operands written in place equals the eager calls bit for
+    bit; the capture counts nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    and_g, or_g = _grids_with_exponent_faults(dev)
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn((1024, 512), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((512, 768), generator=g, device=dev) * 0.05).to(torch.bfloat16)
+    xe = torch.randn((8, 256, 512), generator=g, device=dev).to(torch.bfloat16)
+    we = (torch.randn((8, 512, 384), generator=g, device=dev) * 0.05).to(torch.bfloat16)
+
+    def body():
+        return (TFM.ft_matmul(x, w, and_g, or_g, out_dtype=torch.bfloat16),
+                TFM.ft_matmul_batched(xe, we, and_g, or_g, out_dtype=torch.bfloat16))
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize(dev)
+    before = (TFM.ft_matmul.tile_launches, TFM.ft_matmul_batched.tile_launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = body()
+    TFM.ft_matmul.tile_launches, TFM.ft_matmul_batched.tile_launches = before
+    for seed in (15, 16):
+        g.manual_seed(seed)
+        x.copy_(torch.randn(x.shape, generator=g, device=dev))
+        xe.copy_(torch.randn(xe.shape, generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        for got, want in zip(outs, body()):
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 32])
+def test_decode_row_counts_keep_the_strip_kernel_on_the_card(m):
+    """At M = 4 and M = 32 rows (per expert) the wrappers launch the strip
+    kernel of their plan as before: no tile launch, the explicit strip plan's
+    bits, and the plain version's on integer-valued operands."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    and_g, or_g = _grids_with_exponent_faults(dev)
+    g = torch.Generator(device=dev).manual_seed(17)
+    tiles = (TFM.ft_matmul.tile_launches, TFM.ft_matmul_batched.tile_launches)
+    for k, n in ((1536, 1536), (2048, 1408), (1536, 48)):
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=g, device=dev) * 0.05).to(torch.bfloat16)
+        plan = TFM.plan_of(x, w)
+        assert plan.bn == TFM.STRIP
+        got = TFM.ft_matmul(x, w, and_g, or_g, out_dtype=torch.bfloat16)
+        assert torch.equal(got.view(torch.int16),
+                           TFM.ft_matmul(x, w, and_g, or_g, out_dtype=torch.bfloat16, plan=plan).view(torch.int16))
+        xi = torch.randint(-4, 5, (m, k), generator=g, device=dev).to(torch.bfloat16)
+        wi = torch.randint(-4, 5, (k, n), generator=g, device=dev).to(torch.bfloat16)
+        assert torch.equal(TFM.ft_matmul(xi, wi, and_g, or_g).view(torch.int32),
+                           TFM.ft_matmul_ref(xi, wi, and_g, or_g).view(torch.int32))
+    xe = torch.randint(-4, 5, (m, 48, 1, 1536), generator=g, device=dev).to(torch.bfloat16).transpose(0, 1)
+    xe = xe.reshape(48, m, 1536)
+    we = torch.randint(-4, 5, (48, 1536, 512), generator=g, device=dev).to(torch.bfloat16)
+    assert TFM.plan_of(xe, we).bn == TFM.STRIP
+    assert torch.equal(TFM.ft_matmul_batched(xe, we, and_g, or_g).view(torch.int32),
+                       TFM.ft_matmul_batched_ref(xe, we, and_g, or_g).view(torch.int32))
+    assert (TFM.ft_matmul.tile_launches, TFM.ft_matmul_batched.tile_launches) == tiles
+
+
 @pytest.mark.cuda
 def test_probe_check_pair_matches_plain_version_on_the_card():
     """The pair kernel against its plain version (the OR of two
@@ -368,7 +562,9 @@ def test_captured_step_equals_eager_across_a_swap_on_the_card(arch, dispatch):
     bitwise equal, one capture a server, and the launch counters after the
     warm-up step and N replays equal (N + 1) times the launches the capture
     recorded, which is what the eager run counts a step (none under
-    ``plain``, which captures plain matmuls)."""
+    ``plain``, which captures plain matmuls); the same for the tile
+    launches, which only whisper's cross-attention K/V over its encoder
+    frames makes at decode."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import dataclasses
@@ -393,14 +589,14 @@ def test_captured_step_equals_eager_across_a_swap_on_the_card(arch, dispatch):
                 srv.submit(p, 6)
             logits, swaps = [], []
             for k in kernels:
-                k.launches = 0
+                k.launches = k.tile_launches = 0
             while srv.queue.depth() or srv.scheduler.active:
                 if srv.step_idx == 3:
                     inj.inject_at(1, 2, bit=29, val=1)
                 swaps.append(bundle.swaps)
                 srv.step()
                 logits.append(srv.decode.logits.clone())
-            runs[capture] = (srv, logits, swaps, [k.launches for k in kernels])
+            runs[capture] = (srv, logits, swaps, [getattr(k, c) for c in TFM.COUNTERS for k in kernels])
         (gs, gl, gsw, gn), (es, el, _, en) = runs[True], runs[False]
         steps = len(gl)
         assert all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(gl, el))
@@ -410,8 +606,9 @@ def test_captured_step_equals_eager_across_a_swap_on_the_card(arch, dispatch):
         assert gs.decode.captures == 1 and gs.decode.replays == steps - 1 and es.decode.captures == 0
         if mode != "off":
             assert gsw[-1] > gsw[1]  # a fault-state swap after the capture
-        per_step = [gs.decode.deltas[k] for k in kernels]
+        per_step = [gs.decode.deltas[(k, c)] for c in TFM.COUNTERS for k in kernels]
         assert gn == en == [steps * n for n in per_step] and (per_step[0] > 0) == (dispatch == "fused")
+        assert (sum(per_step[2:]) > 0) == (arch == "whisper-tiny" and dispatch == "fused")
 
 
 @pytest.mark.cuda

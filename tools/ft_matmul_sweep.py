@@ -1,7 +1,9 @@
 """Time the port's ft_matmul kernels at the serving path's decode shapes, over
-every cluster split, beside three ablations and the library call, on one card.
+every cluster split, beside three ablations and the library call; the tile
+kernel against the strip kernel at the benchmark's prefill shapes and over M,
+the sweep that fixes ``M_TILE``; on one card.
 
-    python3 tools/ft_matmul_sweep.py [--out FILE]
+    python3 tools/ft_matmul_sweep.py [--parts decode,prefill,m_sweep] [--out FILE]
 
 For each main-path shape of chip_smoke.py (DECODE_SHAPES and EXPERT_SHAPES,
 bf16 operands, bf16 store) and each split S in 1, 2, 4, 8 (1 only for the
@@ -21,6 +23,16 @@ with the weights cycled past the L2 cache, of:
 
 and ``library``: torch.matmul (torch.bmm for the experts) of the same bf16
 product, timed before and after.  The plan's split (``ft_plan``) is marked.
+
+``prefill`` times, at each shape of chip_smoke.py's BENCH_PREFILL_SHAPES
+(bf16, bf16 store), the tile plan, the strip plan the same call takes below
+``M_TILE`` rows, the library call and the plain version (its f32 product
+with PyTorch's default, TF32 off), with the bound, each shape's launches a
+batch and the totals a batch.  ``m_sweep`` times the tile and strip plans
+at M rows per expert from 32 to 1024 on four (E, K, N) and prints, per M,
+whether the tile plan was the faster at every one: ``M_TILE`` is the
+smallest M from which it is, at that M and every larger one.
+
 The ablations are built into build/ft_matmul_sweep/ by substituting text in
 the source; they are probes, never loaded by the port.  Needs one CUDA card;
 exits non-zero without one.
@@ -29,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -52,6 +65,12 @@ ABLATIONS = {
                     "if constexpr (false)")],
 }
 SPLITS = (1, 2, 4, 8)
+PARTS = ("decode", "prefill", "m_sweep")
+M_SWEEP = (32, 48, 64, 96, 128, 192, 256, 384, 512, 1024)
+# (name, E, K, N) of the M sweep: a dense projection and a narrow one, and
+# both models' expert stacks
+M_SWEEP_SHAPES = (("qkvo_2048x2048", 1, 2048, 2048), ("kv_1536x512", 1, 1536, 512),
+                  ("gate_up_48x1536x512", 48, 1536, 512), ("gate_up_64x2048x1408", 64, 2048, 1408))
 
 
 def build_ablations(out_dir: Path) -> dict[str, ctypes.CDLL]:
@@ -90,17 +109,18 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def caller(lib: ctypes.CDLL, split: int, and_g, or_g):
+def caller(lib: ctypes.CDLL, split: int, and_g, or_g, plan=None):
     """``(x, w) -> bf16 out`` through ``lib`` at the plan's layout and strip
-    width but the given split."""
+    width but the given split, or at ``plan`` as it is."""
     from repro_torch.kernels import ft_matmul as FM
 
     rows, cols = and_g.shape
+    fixed = plan
 
     def run(x, w):
-        plan = FM.plan_of(x, w)
+        plan = fixed or dataclasses.replace(FM.plan_of(x, w), split=split)
         stream = torch.cuda.current_stream().cuda_stream
-        tail = (1, 1, rows, cols, FM.LAYOUTS.index(plan.layout), split, plan.bn, 1, stream)
+        tail = (1, 1, rows, cols, FM.LAYOUTS.index(plan.layout), plan.split, plan.bn, 1, stream)
         if x.dim() == 3:
             e, m, k = x.shape
             out = torch.empty((e, m, w.shape[2]), dtype=torch.bfloat16, device=x.device)
@@ -112,15 +132,81 @@ def caller(lib: ctypes.CDLL, split: int, and_g, or_g):
             rc = lib.ft_matmul_launch(x.data_ptr(), w.data_ptr(), and_g.data_ptr(), or_g.data_ptr(),
                                       out.data_ptr(), m, w.shape[1], k, *x.stride(), *w.stride(), *tail)
         if rc != 0:
-            raise RuntimeError(f"launch failed: CUDA error {rc} at split {split}")
+            raise RuntimeError(f"launch failed: CUDA error {rc} at {plan}")
         return out
     return run
 
 
+def _tile_operands(g, dev, e: int, m: int, k: int, n: int, l2_bytes: int):
+    """bf16 ``x`` and enough weight copies that each call reads its weight
+    from device memory: (E, M, K) and (E, K, N), or 2-D for E = 1."""
+    x = torch.randn((e, m, k), generator=g, device=dev).to(torch.bfloat16)
+    w_bytes = 2 * e * k * n
+    ws = [(torch.randn((e, k, n), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+          for _ in range(max(1, min(16, -(-2 * l2_bytes // w_bytes))))]
+    if e == 1:
+        x, ws = x[0], [w[0] for w in ws]
+    return x, ws
+
+
+def tile_rows(cs, FM, lib, and_g, or_g, dev, part: str, smi: str) -> list[dict]:
+    """The ``prefill`` or ``m_sweep`` rows: device us of one call of the
+    tile plan and of the strip plan (``strip_plan``), and the library's."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    if part == "prefill":
+        shapes = [(arch, s[0], s[1], s[2], s[3], s[4], s[5])
+                  for arch in cs.BENCH_PREFILL_SHAPES for s in cs.BENCH_PREFILL_SHAPES[arch]]
+    else:
+        shapes = [("m_sweep", f"{name}_M{m}", e, m, k, n, 1) for m in M_SWEEP for name, e, k, n in M_SWEEP_SHAPES]
+    rows = []
+    for arch, name, e, m, k, n, per in shapes:
+        x, ws = _tile_operands(g, dev, e, m, k, n, cs.L2_BYTES)
+        calls = [(x, w) for w in ws]
+        iters = max(20, 2 * len(ws))
+        strip = FM.strip_plan(e, m, n, k, torch.bfloat16, "n_fast")
+        bound, by = cs.bound_ms(2 * e * (m * k + k * n + m * n), 2 * e * m * n * k, torch.bfloat16)
+
+        def device_us(fn):
+            ms = cs.device_ms(fn, calls, iters)
+            return None if ms is None else 1e3 * ms
+
+        us = {"tile": device_us(caller(lib, 1, and_g, or_g, FM.TILE_PLAN)),
+              "strip": device_us(caller(lib, strip.split, and_g, or_g, strip)),
+              "library": device_us(torch.matmul if e == 1 else torch.bmm)}
+        if part == "prefill":
+            plain = FM.ft_matmul_ref if e == 1 else FM.ft_matmul_batched_ref
+            us["plain"] = device_us(lambda x, w: plain(x, w, and_g, or_g, out_dtype=torch.bfloat16))
+        row = dict(part=part, arch=arch, shape=name, E=e, M=m, K=k, N=n, launches_per_batch=per,
+                   plan=cs._plan_str(FM.plan_of(x, ws[0])), strip_plan=cs._plan_str(strip), bound_us=1e3 * bound,
+                   bound_by=by, us=us, tile_share_of_bound=(1e3 * bound / us["tile"]) if us["tile"] else None,
+                   card=smi)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del ws, calls
+    if part == "prefill":
+        for arch in cs.BENCH_PREFILL_SHAPES:
+            mine = [r for r in rows if r["arch"] == arch]
+            tot = {k: sum(r["us"][k] * r["launches_per_batch"] for r in mine if r["us"][k]) / 1e3
+                   for k in ("tile", "strip", "library", "plain")}
+            print(json.dumps(dict(part="prefill_total", arch=arch, ms_per_batch=tot,
+                                  bound_ms=sum(r["bound_us"] * r["launches_per_batch"] for r in mine) / 1e3,
+                                  card=smi)), flush=True)
+    else:
+        faster = {m: all(r["us"]["tile"] < r["us"]["strip"] for r in rows if r["M"] == m) for m in M_SWEEP}
+        m_tile = next((m for i, m in enumerate(M_SWEEP) if all(faster[mm] for mm in M_SWEEP[i:])), None)
+        print(json.dumps(dict(part="m_sweep_result", tile_faster_at=faster, m_tile=m_tile,
+                              module_m_tile=FM.M_TILE, card=smi)), flush=True)
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parts", default=",".join(PARTS), help=f"comma-separated, of {PARTS}")
     ap.add_argument("--out", help="also write every row as JSON to this file")
     args = ap.parse_args()
+    parts = args.parts.split(",")
+    if not set(parts) <= set(PARTS):
+        ap.error(f"--parts takes {PARTS}")
     if not torch.cuda.is_available():
         print("ft_matmul_sweep: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         sys.exit(2)
@@ -133,11 +219,15 @@ def main() -> None:
     print(smi, flush=True)
     dev = torch.device("cuda")
     libs = {"kernel": bind(_build.load("ft_matmul"))}
-    libs.update({k: bind(v) for k, v in build_ablations(ROOT / "build" / "ft_matmul_sweep").items()})
     and_g, or_g = cs.fault_grids(dev)
-    g = torch.Generator(device=dev).manual_seed(1)
     rows_out = []
-    for arch in (cs.QWEN, cs.GRANITE):
+    for part in ("prefill", "m_sweep"):
+        if part in parts:
+            rows_out += tile_rows(cs, FM, libs["kernel"], and_g, or_g, dev, part, smi)
+    if "decode" in parts:
+        libs.update({k: bind(v) for k, v in build_ablations(ROOT / "build" / "ft_matmul_sweep").items()})
+    g = torch.Generator(device=dev).manual_seed(1)
+    for arch in ((cs.QWEN, cs.GRANITE) if "decode" in parts else ()):
         for shape in cs.DECODE_SHAPES[arch] + cs.EXPERT_SHAPES[arch]:
             name, per = shape[0], shape[-1]
             if len(shape) == 5:
