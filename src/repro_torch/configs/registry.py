@@ -1,7 +1,8 @@
 """Architecture registry: ``arch`` id → :class:`~repro_torch.models.lm.LMConfig`.
 
-All ten ids of the JAX registry: the dense, moe, vlm, encdec, ssm and
-hybrid families.
+All ten ids of the JAX registry (:data:`ARCH_IDS`): the dense, moe, vlm,
+encdec, ssm and hybrid families; and the port's own (:data:`PORT_ONLY`),
+outside the parity tests that walk the JAX registry's ids.
 """
 from __future__ import annotations
 
@@ -24,15 +25,24 @@ _MODULES = {  # the reference registry's ids, in its order
 
 ARCH_IDS = tuple(_MODULES)
 
+# the port's own ids, which the JAX registry has not: id -> (module, the
+# function that gives its config)
+PORT_ONLY = {
+    "deepseek-v3": ("repro_torch.configs.deepseek_v3", "config"),
+    "deepseek-v3-ep32": ("repro_torch.configs.deepseek_v3", "ep32_config"),
+}
+
 
 def _mod(arch: str):
+    if arch in PORT_ONLY:
+        return importlib.import_module(PORT_ONLY[arch][0])
     if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {', '.join(ARCH_IDS)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {', '.join(ARCH_IDS + tuple(PORT_ONLY))}")
     return importlib.import_module(_MODULES[arch])
 
 
 def get_config(arch: str) -> LMConfig:
-    return _mod(arch).config()
+    return getattr(_mod(arch), PORT_ONLY[arch][1] if arch in PORT_ONLY else "config")()
 
 
 def get_smoke_config(arch: str) -> LMConfig:

@@ -3,9 +3,11 @@
 Each ``src/repro_torch/csrc/<name>.cu`` is compiled on first use by ``nvcc``
 into its own shared library with a plain C interface
 (``build/repro_torch/<name>-<hash>.so`` at the repository root) and loaded with
-``ctypes``.  The file name carries a hash of the source, the shared headers
-(``csrc/*.cuh``) and the flags, so a library is rebuilt only when one of them
-changes.  :func:`build_all` starts one ``nvcc`` per source at once and waits
+``ctypes``.  A name may hold a folder (``obs/span_mark``: the device marks of
+:mod:`repro_torch.obs.spans`); :func:`sources` and :func:`build_all` take the
+kernels of ``csrc/`` itself.  The file name carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so a library is rebuilt only
+when one of them changes.  :func:`build_all` starts one ``nvcc`` per source at once and waits
 for all of them.  ``nvcc`` runs with ``-Xptxas -v``; its report is kept
 beside each library (``<name>-<hash>.log``) and :func:`ptxas_usage` reads
 each kernel's registers, shared memory and spill bytes from it.
@@ -64,10 +66,10 @@ def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
     out = library_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     # build to a private name, then rename: a concurrent loader never sees a
     # half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

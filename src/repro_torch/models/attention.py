@@ -14,8 +14,9 @@ import torch
 from repro_torch.core.ftcontext import site_matmul
 from repro_torch.dist.sharding import einsum, is_dtensor, shard
 from repro_torch.models.layers import (
-    Params, apply_rope, dense_init, merge_heads, rmsnorm, rmsnorm_init, split_heads,
+    Params, YarnScaling, apply_rope, dense_init, merge_heads, rmsnorm, rmsnorm_init, split_heads,
 )
+from repro_torch.obs.spans import ATTN_MLA
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,10 +209,14 @@ def gqa_cache_init(cfg: AttnConfig, batch: int, smax: int, dtype=torch.bfloat16,
 
 
 # --------------------------------------------------------------------------- #
-# MLA — multi-head latent attention (MiniCPM3 / DeepSeek-V2)
+# MLA — multi-head latent attention (MiniCPM3 / DeepSeek-V2 / DeepSeek-V3)
 # --------------------------------------------------------------------------- #
 @dataclasses.dataclass(frozen=True)
 class MLAConfig:
+    """The reference package's MLA config, field for field: plain RoPE at
+    the base theta on contiguous halves.  :class:`YarnMLAConfig` adds
+    DeepSeek-V3's RoPE."""
+
     d_model: int
     n_heads: int
     q_lora: int = 768
@@ -221,6 +226,33 @@ class MLAConfig:
     d_v: int = 64
     rope_theta: float = 10000.0
     q_block: int = 512
+
+    rope_scaling = None       # no fields here: YarnMLAConfig's
+    rope_interleave = False
+
+    @property
+    def softmax_scale(self) -> float:
+        """``(d_nope + d_rope) ** -0.5``, times YaRN's ``mscale_all_dim``
+        squared."""
+        scale = 1.0 / ((self.d_nope + self.d_rope) ** 0.5)
+        if self.rope_scaling is not None:
+            scale *= self.rope_scaling.softmax_scale_factor()
+        return scale
+
+    def rope(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        return apply_rope(x, positions, self.rope_theta, scaling=self.rope_scaling,
+                          interleave=self.rope_interleave)
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnMLAConfig(MLAConfig):
+    """MLA with DeepSeek-V3's RoPE: ``rope_scaling``, YaRN's frequencies,
+    which also scale the softmax (:attr:`softmax_scale`); ``rope_interleave``,
+    the rotated pairs interleaved
+    (:func:`~repro_torch.models.layers.apply_rope`)."""
+
+    rope_scaling: YarnScaling | None = None
+    rope_interleave: bool = False
 
 
 def mla_init(gen: torch.Generator, cfg: MLAConfig, *, device="cuda") -> Params:
@@ -244,42 +276,50 @@ def _mla_qkr(x, p, cfg: MLAConfig, positions, ftc=None):
     h, dn, dr = cfg.n_heads, cfg.d_nope, cfg.d_rope
     mm = site_matmul(ftc, "attn.qkv")
     q = split_heads(mm(rmsnorm(mm(x, p["wq_a"]), p["q_norm"]), p["wq_b"]), h, dn + dr)
-    q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    q_nope, q_rope = q[..., :dn], cfg.rope(q[..., dn:], positions)
     kv_a = mm(x, p["wkv_a"])
     c_kv = rmsnorm(kv_a[..., :cfg.kv_lora], p["kv_norm"])
-    k_rope = apply_rope(kv_a[..., cfg.kv_lora:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    k_rope = cfg.rope(kv_a[..., cfg.kv_lora:][:, :, None, :], positions)[:, :, 0]
     return q_nope, q_rope, c_kv, k_rope
 
 
 def mla_forward(x, p, cfg: MLAConfig, positions=None, ftc=None) -> torch.Tensor:
     """MLA over a whole sequence x: (B,S,d), causal, in query blocks of
-    ``q_block`` rows; the keys and values are expanded from the latent
-    through ``wkv_b`` on the array (site attn.qkv)."""
+    ``q_block`` rows, each over the keys up to its last row; the keys and
+    values are expanded from the latent through ``wkv_b`` on the array
+    (site attn.qkv).  The attention core,
+    from the expanded keys and values to the heads' output, is the span
+    ``attn.mla`` (:mod:`repro_torch.obs.spans`)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    h, dn, dr, dv = cfg.n_heads, cfg.d_nope, cfg.d_rope, cfg.d_v
+    h, dn, dv = cfg.n_heads, cfg.d_nope, cfg.d_v
     q_nope, q_rope, c_kv, k_rope = _mla_qkr(x, p, cfg, positions, ftc)
     kv = split_heads(site_matmul(ftc, "attn.qkv")(c_kv, p["wkv_b"]), h, dn + dv)
-    k_nope32, v32 = kv[..., :dn].to(torch.float32), kv[..., dn:].to(torch.float32)
-    k_rope32 = k_rope.to(torch.float32)
-    scale = 1.0 / ((dn + dr) ** 0.5)
     qb = min(cfg.q_block, s)
     if s % qb:
         raise ValueError(f"sequence length {s} is not a multiple of the query block {qb}")
-    kpos = torch.arange(s, device=x.device)
-    neg = torch.full((), -1e30, device=x.device)
-    outs = []
-    for blk in range(s // qb):
-        rows = slice(blk * qb, (blk + 1) * qb)
-        qpos = blk * qb + torch.arange(qb, device=x.device)
-        sc = (einsum("bqhd,bshd->bqhs", q_nope[:, rows].to(torch.float32), k_nope32)
-              + einsum("bqhd,bsd->bqhs", q_rope[:, rows].to(torch.float32), k_rope32)) * scale
-        mask = kpos[None, :] <= qpos[:, None]
-        sc = torch.where(mask[None, :, None, :], sc, neg)
-        wts = torch.softmax(sc, dim=-1)
-        outs.append(einsum("bqhs,bshd->bqhd", wts, v32).to(x.dtype))
-    out = merge_heads(torch.cat(outs, dim=1))
+    with ATTN_MLA.on(x.device):
+        k_nope32, v32 = kv[..., :dn].to(torch.float32), kv[..., dn:].to(torch.float32)
+        k_rope32 = k_rope.to(torch.float32)
+        scale = cfg.softmax_scale
+        kpos = torch.arange(s, device=x.device)
+        neg = torch.full((), -1e30, device=x.device)
+        outs = []
+        for blk in range(s // qb):
+            rows = slice(blk * qb, (blk + 1) * qb)
+            # the keys past the block's last row are all masked (weight exactly 0): a block reads the keys
+            # up to it, half the work of the full panel over a sequence; on DTensors the panel stays whole,
+            # as a slice of a sharded sequence would gather it
+            keys = slice(0, s if is_dtensor(x) else (blk + 1) * qb)
+            qpos = blk * qb + torch.arange(qb, device=x.device)
+            sc = (einsum("bqhd,bshd->bqhs", q_nope[:, rows].to(torch.float32), k_nope32[:, keys])
+                  + einsum("bqhd,bsd->bqhs", q_rope[:, rows].to(torch.float32), k_rope32[:, keys])) * scale
+            mask = kpos[None, keys] <= qpos[:, None]
+            sc = torch.where(mask[None, :, None, :], sc, neg)
+            wts = torch.softmax(sc, dim=-1)
+            outs.append(einsum("bqhs,bshd->bqhd", wts, v32[:, keys]).to(x.dtype))
+        out = merge_heads(torch.cat(outs, dim=1))
     return shard(site_matmul(ftc, "attn.out")(out, p["wo"]), "batch", "seq", "embed")
 
 
@@ -301,25 +341,27 @@ def mla_decode(x, p, cfg: MLAConfig, cache: Params, ftc=None) -> tuple[torch.Ten
     reference's einsums promote a bf16 ``w_uk`` / ``w_uv`` and an f32
     operand to f32; here they are cast to f32 where it promotes.  The cache
     is updated in place and returned, ``idx`` advancing after its last read
-    (see :func:`gqa_decode`)."""
+    (see :func:`gqa_decode`).  The attention core, from the absorbed query
+    to the heads' output, is the span ``attn.mla``."""
     b = x.shape[0]
     idx = cache["idx"]
-    h, dn, dr, dv = cfg.n_heads, cfg.d_nope, cfg.d_rope, cfg.d_v
+    h, dn, dv = cfg.n_heads, cfg.d_nope, cfg.d_v
     q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkr(x, p, cfg, idx[:, None], ftc)
     bidx = torch.arange(b, device=x.device)
     c_cache, r_cache = cache["c_kv"], cache["k_rope"]
     _write_rows(bidx, idx, (c_cache, c_kv_new[:, 0]), (r_cache, k_rope_new[:, 0]))
     wkv_b = shard(p["wkv_b"], None, "heads", dims=(cfg.kv_lora, h)).reshape(cfg.kv_lora, h, dn + dv)
-    w_uk, w_uv = wkv_b[..., :dn].to(torch.float32), wkv_b[..., dn:].to(torch.float32)  # (L,H,dn), (L,H,dv)
-    q_abs = einsum("bhd,lhd->bhl", q_nope[:, 0].to(torch.float32), w_uk)
-    scale = 1.0 / ((dn + dr) ** 0.5)
-    c32 = c_cache.to(torch.float32)
-    sc = (einsum("bhl,bsl->bhs", q_abs, c32)
-          + einsum("bhd,bsd->bhs", q_rope[:, 0].to(torch.float32), r_cache.to(torch.float32))) * scale
-    valid = torch.arange(c_cache.shape[1], device=x.device)[None, :] <= idx[:, None]
-    sc = torch.where(valid[:, None, :], sc, torch.full((), -1e30, device=x.device))
-    wts = _softmax_over_cache(sc)
-    ctx = einsum("bhs,bsl->bhl", wts, c32)
-    out = shard(einsum("bhl,lhd->bhd", ctx, w_uv), "batch", "heads", None).reshape(b, 1, h * dv).to(x.dtype)
+    with ATTN_MLA.on(x.device):
+        w_uk, w_uv = wkv_b[..., :dn].to(torch.float32), wkv_b[..., dn:].to(torch.float32)  # (L,H,dn), (L,H,dv)
+        q_abs = einsum("bhd,lhd->bhl", q_nope[:, 0].to(torch.float32), w_uk)
+        scale = cfg.softmax_scale
+        c32 = c_cache.to(torch.float32)
+        sc = (einsum("bhl,bsl->bhs", q_abs, c32)
+              + einsum("bhd,bsd->bhs", q_rope[:, 0].to(torch.float32), r_cache.to(torch.float32))) * scale
+        valid = torch.arange(c_cache.shape[1], device=x.device)[None, :] <= idx[:, None]
+        sc = torch.where(valid[:, None, :], sc, torch.full((), -1e30, device=x.device))
+        wts = _softmax_over_cache(sc)
+        ctx = einsum("bhs,bsl->bhl", wts, c32)
+        out = shard(einsum("bhl,lhd->bhd", ctx, w_uv), "batch", "heads", None).reshape(b, 1, h * dv).to(x.dtype)
     idx.add_(1)
     return shard(site_matmul(ftc, "attn.out")(out, p["wo"]), "batch", None, "embed"), cache

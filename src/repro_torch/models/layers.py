@@ -5,6 +5,7 @@ JAX package exactly, so both compute the same function.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable
 
@@ -76,15 +77,68 @@ def rope_freqs(head_dim: int, theta: float = 10000.0, *, device="cuda") -> torch
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class YarnScaling:
+    """YaRN's RoPE scaling (arXiv:2309.00071) as DeepSeek-V3 publishes it
+    (HF ``DeepseekV3YarnRotaryEmbedding``): each frequency blends the base
+    one with the one ``factor`` times slower, by a ramp over the dims
+    between the rotation counts ``beta_fast`` and ``beta_slow`` at the
+    pre-scaling context ``original_max_position_embeddings``; cos and sin
+    are scaled by :meth:`cos_sin_scale`, attention's softmax scale by
+    :meth:`softmax_scale_factor`."""
+
+    factor: float
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+    original_max_position_embeddings: int = 4096
+
+    def _mscale(self, m: float) -> float:
+        return 1.0 if self.factor <= 1 else 0.1 * m * math.log(self.factor) + 1.0
+
+    def cos_sin_scale(self) -> float:
+        return self._mscale(self.mscale) / self._mscale(self.mscale_all_dim)
+
+    def softmax_scale_factor(self) -> float:
+        return self._mscale(self.mscale_all_dim) ** 2
+
+    def inv_freq(self, d: int, theta: float, *, device="cuda") -> torch.Tensor:
+        """(d/2,) f32: ``inter * ramp + extra * (1 - ramp)``, ``extra`` the
+        base frequencies and ``inter`` them over ``factor``."""
+        def dim_of(rotations):
+            return d * math.log(self.original_max_position_embeddings / (rotations * 2 * math.pi)) / (
+                2 * math.log(theta))
+
+        low = max(math.floor(dim_of(self.beta_fast)), 0)
+        high = min(math.ceil(dim_of(self.beta_slow)), d - 1)
+        extra = rope_freqs(d, theta, device=device)
+        inter = 1.0 / (self.factor * theta ** (torch.arange(0, d, 2, dtype=torch.float32, device=device) / d))
+        ramp = torch.clamp((torch.arange(d // 2, dtype=torch.float32, device=device) - low)
+                           / (high - low if high != low else 0.001), 0, 1)
+        keep = 1.0 - ramp  # HF's inv_freq_mask, and its order of operations
+        return inter * (1 - keep) + extra * keep
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0, *,
+               scaling: YarnScaling | None = None, interleave: bool = False) -> torch.Tensor:
     """x: (..., S, H, D); positions: (..., S).  Runs in f32.  On DTensors
     (under a ``DeviceMesh``'s :func:`~repro_torch.dist.sharding.use_mesh`)
     the plain ``freqs`` table is read as replicated: ``use_mesh`` runs the
-    model under ``implicit_replication``."""
+    model under ``implicit_replication``.
+
+    ``scaling``: YaRN's frequencies and cos/sin scale.  ``interleave``:
+    the rotated pairs are (x[2i], x[2i+1]), DeepSeek-V3's layout: they are
+    gathered to the halves first (HF's ``view(d/2, 2).transpose``), and the
+    result stays in the halves' layout, which q and k share."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, device=x.device)
+    if interleave:
+        x = x.unflatten(-1, (d // 2, 2)).transpose(-1, -2).reshape(x.shape)
+    freqs = rope_freqs(d, theta, device=x.device) if scaling is None else scaling.inv_freq(d, theta, device=x.device)
     ang = positions[..., :, None, None].to(torch.float32) * freqs  # (..., S, 1, D/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
+    if scaling is not None and scaling.cos_sin_scale() != 1.0:
+        cos, sin = cos * scaling.cos_sin_scale(), sin * scaling.cos_sin_scale()
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

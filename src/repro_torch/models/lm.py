@@ -113,13 +113,18 @@ class LMConfig:
 
     def n_active_params(self) -> int:
         """Active params per token (MoE: only the routed top-k and the shared
-        experts)."""
+        experts).  A layer that holds a share of the experts
+        (``moe.experts_held``) counts the picks expected on its share,
+        ``top_k * experts_held / n_experts`` experts a token."""
         total = self.n_params()
         if self.moe is None:
             return total
         m = self.moe
         per_expert = 3 * self.d_model * m.d_expert
-        inactive = (m.n_padded - m.top_k) * per_expert * (self.n_layers - self.first_k_dense)
+        n_moe = self.n_layers - self.first_k_dense
+        if m.experts_held:
+            return total - round((m.experts_held - m.top_k * m.experts_held / m.n_experts) * per_expert * n_moe)
+        inactive = (m.n_padded - m.top_k) * per_expert * n_moe
         return total - inactive
 
 

@@ -88,6 +88,7 @@ from repro_torch.models.lm import (
 )
 from repro_torch.obs.counters import Counters, trace_site_calls
 from repro_torch.obs.events import EventLog
+from repro_torch.obs import router as router_tally
 from repro_torch.obs.phases import PhaseClock
 from repro_torch.obs.series import SeriesBuffer, record_step
 from repro_torch.repair.plan import remap_plan
@@ -822,7 +823,11 @@ class FaultTolerantServer:
                     deadline_step=req.deadline_step,
                 ))
         self.metrics.finish()
-        return self.metrics.summary(counters=self.counters_host())
+        out = self.metrics.summary(counters=self.counters_host())
+        if self.lm.moe is not None and self.lm.moe.experts_held:
+            # a share of the experts: the router's picks on this device (repro_torch.obs.router)
+            out["router"] = router_tally.totals(self.device)
+        return out
 
     def completions_by_rid(self) -> dict[int, np.ndarray]:
         return {c.rid: c.tokens for c in self.metrics.completions if c.ok}
