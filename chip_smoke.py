@@ -118,7 +118,11 @@ Phases, each printed on its own line; any failure exits non-zero:
   10. the training and prefill slice.  prefill_kernels: ft_matmul and
      ft_matmul_batched against their plain versions at the fused prefill's
      shapes (M = 2048; the experts 48 x 512 and 64 x 240 rows), as in 3
-     and 4.  On
+     and 4.  mla_prefill: the MLA prefill core's kernel against its plain
+     version at the deepseek-v3.prefill-long cell's shapes (1 x 4096, 2 x
+     2048, 4 x 1024; 128 heads) and minicpm3-4b's (4 x 512; 40 heads),
+     within MLA_PREFILL_TOL, timed beside the bound, the plain version and
+     torch's scaled_dot_product_attention (the yardstick only).  On
      qwen1.5-0.5b before it is freed: serve_retrain — repair="retrain" with
      the six faults of serve_remap at step 2, where the hook plans the remap
      and fine-tunes this server's f32 masters (4 steps, twopass), copied
@@ -532,7 +536,7 @@ def build_phase() -> None:
         for k in usage:
             # the tensor-core kernels hold their accumulators in registers, the
             # ft_matmul kernels their loads in flight
-            if "wgmma" in k["kernel"] or name == "ft_matmul":
+            if "wgmma" in k["kernel"] or name in ("ft_matmul", "mla_prefill"):
                 check(k["spill_stores"] == k["spill_loads"] == 0, f"{k['kernel']} spills: {k}")
         phase("ptxas", library=name, kernels=usage, dynamic_smem_bytes=None if ring is None else ring())
 
@@ -812,9 +816,10 @@ SCENARIOS = (("off", (), ()), ("protected", BIST_FAULTS, ((2, (5, 3, 30, 1)),)),
 def _kernels():
     from repro_torch.kernels.dppu_recompute import probe_check, probe_check_pair
     from repro_torch.kernels.ft_matmul import ft_matmul, ft_matmul_batched
+    from repro_torch.kernels.mla_prefill import mla_prefill
 
     return {"ft_matmul": ft_matmul, "ft_matmul_batched": ft_matmul_batched, "probe_check": probe_check,
-            "probe_check_pair": probe_check_pair}
+            "probe_check_pair": probe_check_pair, "mla_prefill": mla_prefill}
 
 
 def call_shapes(fn, ctx, *args) -> dict[tuple, int]:
@@ -2475,6 +2480,80 @@ def prefill_kernel_checks(dev) -> dict[str, float]:
     return max_abs
 
 
+# (name, B, S, H, (dn, dr, dv), arch, layers a prefill) of the MLA prefill
+# core's calls: the three batches of 4096 tokens of deepseek-v3.prefill-long
+# (23 layers) and minicpm3-4b's fused prefill (PREFILL, 62 layers)
+MLA_PREFILL_SHAPES = (
+    ("v3_1x4096", 1, 4096, 128, (128, 64, 128), "deepseek-v3-ep32", 23),
+    ("v3_2x2048", 2, 2048, 128, (128, 64, 128), "deepseek-v3-ep32", 23),
+    ("v3_4x1024", 4, 1024, 128, (128, 64, 128), "deepseek-v3-ep32", 23),
+    ("minicpm3_4x512", 4, 512, 40, (64, 32, 64), MINICPM3, 62),
+)
+# relative RMS error of the kernel against the f32 plain version: about two
+# bf16 ulps, the output's rounding plus P's (tests/test_torch_mla_prefill.py)
+MLA_PREFILL_TOL = 5e-3
+
+
+def mla_prefill_phase(dev, smi: str) -> dict:
+    """The MLA prefill core's kernel at MLA_PREFILL_SHAPES, on N(0, 1) bf16
+    operands in the layouts mla_forward hands over (q_nope and k_nope, v
+    views of wider tensors): held to ``mla_prefill_ref`` within
+    MLA_PREFILL_TOL, then its device ms a call beside the bound (the causal
+    operations at the bf16 peak or q, k, v and the output once at the HBM
+    peak), the plain version's ms and, as the yardstick only, torch's
+    ``scaled_dot_product_attention`` (is_causal) on the same bf16 operands
+    with the rope key repeated per head; the port never calls it.  Returns
+    the kernels table's row, without the main path's launches."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mla_prefill as MP
+
+    launches0 = MP.mla_prefill.launches
+    shapes, worst = {}, 0.0
+    for name, b, s, h, (dn, dr, dv), arch, layers in MLA_PREFILL_SHAPES:
+        scale = get_config(arch).mla.softmax_scale
+        g = torch.Generator(device=dev).manual_seed(11)
+
+        def draw(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+        q, kv = draw(b, s, h, dn + dr), draw(b, s, h, dn + dv)
+        ops = (q[..., :dn], draw(b, s, h, dr), kv[..., :dn], draw(b, s, dr), kv[..., dn:], scale)
+        got = MP.mla_prefill(*ops)
+        want = MP.mla_prefill_ref(*ops).float()
+        err = float((got.float() - want).norm() / want.norm())
+        check(err <= MLA_PREFILL_TOL, f"mla_prefill {name}: relative RMS error {err} > {MLA_PREFILL_TOL}")
+        worst = max(worst, err)
+        # the yardstick's operands: heads first, (dn + dr)-wide keys
+        qf = torch.cat(ops[:2], -1).transpose(1, 2).contiguous()
+        kf = torch.cat([ops[2], ops[3][:, :, None].expand(b, s, h, dr)], -1).transpose(1, 2).contiguous()
+        vf = ops[4].transpose(1, 2).contiguous()
+
+        def library(qf, kf, vf):
+            return F.scaled_dot_product_attention(qf, kf, vf, is_causal=True, scale=scale)
+
+        lib_err = float((library(qf, kf, vf).transpose(1, 2).float() - want).norm() / want.norm())
+        del want
+        c_k, d_k = measure(MP.mla_prefill, [ops], 20)
+        c_p, d_p = measure(MP.mla_prefill_ref, [ops], 3)
+        c_l, d_l = measure(library, [(qf, kf, vf)], 20)
+        use_dev = None not in (d_k, d_p, d_l)
+        t_k, t_p, t_l = (d_k, d_p, d_l) if use_dev else (c_k, c_p, c_l)
+        flops = b * h * s * (s + 1) / 2 * 2 * (dn + dr + dv)
+        nbytes = 2 * (b * s * h * (dn + dr) + b * s * h * (dn + dv) + b * s * dr + b * s * h * dv)
+        bnd, by = bound_ms(nbytes, flops, torch.bfloat16)
+        shapes[name] = dict(B=b, S=s, H=h, layout=[dn, dr, dv], ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bnd,
+                            bound_by=by, bound_share=bnd / t_k, tflops=tflops(flops, t_k), layers=layers,
+                            ms_per_prefill=t_k * layers, rel_rms_err=err, library_rel_rms_err=lib_err)
+        phase("time_mla_prefill", shape=name, **shapes[name], call_ms=c_k, plain_call_ms=c_p, library_call_ms=c_l,
+              ms_source="profiler" if use_dev else "events", card=smi)
+        del q, kv, ops, got, qf, kf, vf
+    MP.mla_prefill.launches = launches0  # checks and timing, not main-path launches
+    return {"name": "mla_prefill", "route": "cuda", "source": "src/repro_torch/csrc/mla_prefill.cu",
+            "replaces": None, "max_rel_rms_err": worst, "tol": MLA_PREFILL_TOL, "per_call": shapes}
+
+
 def _prefill_ctx(mode: str, faults, dispatch: str, dev):
     from repro_torch.core.engine import HyCAConfig
     from repro_torch.core.ftcontext import build_ftcontext
@@ -2519,7 +2598,8 @@ def prefill_modes(bundle, batch: dict, dev) -> dict:
     hold_shapes(f"{arch} prefill", prefill_shapes(lm, ctxs["protected"], bundle.work, batch),
                 PREFILL_SHAPES[arch], PREFILL_EXPERT_SHAPES[arch])
     want = {"ft_matmul": sum(s[-1] for s in PREFILL_SHAPES[arch]),
-            "ft_matmul_batched": sum(s[-1] for s in PREFILL_EXPERT_SHAPES[arch])}
+            "ft_matmul_batched": sum(s[-1] for s in PREFILL_EXPERT_SHAPES[arch]),
+            "mla_prefill": lm.n_layers if lm.attn_kind == "mla" else 0}  # the attention core, one a layer
 
     def prefill(ctx):
         with torch.no_grad():
@@ -2627,7 +2707,7 @@ def prefill_phase(dev, smi: str, bundle) -> dict[str, dict]:
           library_ms_per_prefill={k: v["library_ms"] for k, v in totals.items()},
           bound_ms_per_prefill={k: v["bound_ms"] for k, v in totals.items()},
           phase_s=time.perf_counter() - t0, card=smi)
-    return totals, dict(batch=batch, ctxs=r["ctxs"], logits=r["logits"])
+    return totals, dict(batch=batch, ctxs=r["ctxs"], logits=r["logits"], launches=r["launches"])
 
 
 # --------------------------------------------------------------------------- #
@@ -4176,10 +4256,11 @@ def main() -> None:
            "ft_matmul_batched": ft_matmul_batched_phase(dev)}
     for name, e in prefill_kernel_checks(dev).items():
         err[name] = max(err[name], e)
+    mla_row = mla_prefill_phase(dev, smi)
     probe_check_phase(dev)
     timed = {"probe_check": time_probe_check(dev, smi)}
     launches = dict.fromkeys(_kernels(), 0)
-    per_path, per_prefill, steady = {}, {}, {}
+    per_path, per_prefill, steady, prefill_launches = {}, {}, {}, {}
     for arch in (QWEN, GRANITE):
         bundle, runs = server_phase(dev, smi, arch)
         for name, n in runs["protected"]["counts"].items():
@@ -4196,6 +4277,7 @@ def main() -> None:
             checkpoint_phase(dev, smi, train)
             del train
         per_prefill[arch], prefilled = prefill_phase(dev, smi, bundle)
+        prefill_launches[arch] = prefilled["launches"]
         # the launch step builders on the served model's bundle, before it is freed
         for name, n in launch_steps_phase(dev, smi, bundle, prefilled if arch == QWEN else None).items():
             launches[name] += n
@@ -4210,7 +4292,8 @@ def main() -> None:
             launches[name] += n
         per_path[arch] = timing_phase(dev, smi, arch, runs)
         if arch in PREFILL:  # the families whose forward runs other matmuls than their decode
-            per_prefill[arch], _ = prefill_phase(dev, smi, bundle)
+            per_prefill[arch], prefilled = prefill_phase(dev, smi, bundle)
+            prefill_launches[arch] = prefilled["launches"]
         del bundle, runs
         free_host_memory()
         torch.cuda.empty_cache()
@@ -4225,6 +4308,15 @@ def main() -> None:
         launches[name] += n
     for name, n in analysis_phase(dev, smi, steady[QWEN]).items():  # the autotuner's timed ft_matmul launches
         launches[name] += n
+
+    from repro_torch.configs import get_config
+
+    # the MLA core's main-path launches: each protected fused prefill's, one a
+    # layer of an MLA model (minicpm3-4b's 62)
+    mla_launches = {arch: n["mla_prefill"] for arch, n in prefill_launches.items() if n["mla_prefill"]}
+    mla_want = {arch: get_config(arch).n_layers for arch in prefill_launches if get_config(arch).attn_kind == "mla"}
+    check(mla_launches == mla_want and launches["mla_prefill"] == 0,
+          f"mla_prefill launched {mla_launches} in the prefills (want {mla_want}), {launches['mla_prefill']} in the other phases")
 
     def matmul_row(name: str, replaces: str) -> dict:
         paths = {arch: t[name] for arch, t in per_path.items() if name in t}
@@ -4253,6 +4345,8 @@ def main() -> None:
          "library_ms": None},
         two_pass["os_array_matmul"],
         two_pass["dppu_recompute"],
+        dict(mla_row, launches=sum(mla_launches.values()), launches_prefill=sum(mla_launches.values()),
+             per_prefill={arch: {"launches": n} for arch, n in mla_launches.items()}),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

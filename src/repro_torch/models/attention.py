@@ -3,7 +3,8 @@ attention (MLA, MiniCPM3 / DeepSeek-V2 style).  Each has its projections,
 the blockwise causal attention of a sequence (prefill and training),
 one-token decode and its cache.  Scores and softmax run in f32, as in the
 JAX package; attention itself is plain PyTorch (the JAX package left it to
-XLA, outside any Pallas kernel).
+XLA, outside any Pallas kernel), except MLA's prefill core on a card, one
+launch of :func:`~repro_torch.kernels.mla_prefill.mla_prefill`.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.core.ftcontext import site_matmul
 from repro_torch.dist.sharding import einsum, is_dtensor, shard
+from repro_torch.kernels.mla_prefill import mla_prefill
 from repro_torch.models.layers import (
     Params, YarnScaling, apply_rope, dense_init, merge_heads, rmsnorm, rmsnorm_init, split_heads,
 )
@@ -284,12 +286,13 @@ def _mla_qkr(x, p, cfg: MLAConfig, positions, ftc=None):
 
 
 def mla_forward(x, p, cfg: MLAConfig, positions=None, ftc=None) -> torch.Tensor:
-    """MLA over a whole sequence x: (B,S,d), causal, in query blocks of
-    ``q_block`` rows, each over the keys up to its last row; the keys and
-    values are expanded from the latent through ``wkv_b`` on the array
-    (site attn.qkv).  The attention core,
-    from the expanded keys and values to the heads' output, is the span
-    ``attn.mla`` (:mod:`repro_torch.obs.spans`)."""
+    """MLA over a whole sequence x: (B,S,d), causal; the keys and values are
+    expanded from the latent through ``wkv_b`` on the array (site
+    attn.qkv).  The attention core, from the expanded keys and values to
+    the heads' output, is the span ``attn.mla``
+    (:mod:`repro_torch.obs.spans`): :func:`mla_prefill`, one kernel launch
+    on a card, the plain version on the CPU and on DTensors, in query blocks
+    of ``q_block`` rows, each over the keys up to its last row."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
@@ -300,26 +303,8 @@ def mla_forward(x, p, cfg: MLAConfig, positions=None, ftc=None) -> torch.Tensor:
     if s % qb:
         raise ValueError(f"sequence length {s} is not a multiple of the query block {qb}")
     with ATTN_MLA.on(x.device):
-        k_nope32, v32 = kv[..., :dn].to(torch.float32), kv[..., dn:].to(torch.float32)
-        k_rope32 = k_rope.to(torch.float32)
-        scale = cfg.softmax_scale
-        kpos = torch.arange(s, device=x.device)
-        neg = torch.full((), -1e30, device=x.device)
-        outs = []
-        for blk in range(s // qb):
-            rows = slice(blk * qb, (blk + 1) * qb)
-            # the keys past the block's last row are all masked (weight exactly 0): a block reads the keys
-            # up to it, half the work of the full panel over a sequence; on DTensors the panel stays whole,
-            # as a slice of a sharded sequence would gather it
-            keys = slice(0, s if is_dtensor(x) else (blk + 1) * qb)
-            qpos = blk * qb + torch.arange(qb, device=x.device)
-            sc = (einsum("bqhd,bshd->bqhs", q_nope[:, rows].to(torch.float32), k_nope32[:, keys])
-                  + einsum("bqhd,bsd->bqhs", q_rope[:, rows].to(torch.float32), k_rope32[:, keys])) * scale
-            mask = kpos[None, keys] <= qpos[:, None]
-            sc = torch.where(mask[None, :, None, :], sc, neg)
-            wts = torch.softmax(sc, dim=-1)
-            outs.append(einsum("bqhs,bshd->bqhd", wts, v32[:, keys]).to(x.dtype))
-        out = merge_heads(torch.cat(outs, dim=1))
+        out = merge_heads(mla_prefill(q_nope, q_rope, kv[..., :dn], k_rope, kv[..., dn:], cfg.softmax_scale,
+                                      q_block=qb))
     return shard(site_matmul(ftc, "attn.out")(out, p["wo"]), "batch", "seq", "embed")
 
 

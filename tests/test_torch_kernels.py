@@ -22,6 +22,7 @@ from repro_torch.core.redundancy import DPPUConfig as TDPPU
 from repro_torch.kernels import _build
 from repro_torch.kernels import dppu_recompute as TDR
 from repro_torch.kernels import ft_matmul as TFM
+from repro_torch.kernels import mla_prefill as TMP
 
 ROWS, COLS = 4, 4
 # (row, col, stuck bit, stuck value): bit 31 stuck-at-1 and -0, an exponent
@@ -144,15 +145,17 @@ def test_cpu_calls_build_nothing_and_count_nothing(monkeypatch):
 
     monkeypatch.setattr(_build, "load", refuse)
     monkeypatch.setattr(_build, "_start", refuse)
-    before = (TFM.ft_matmul.launches, TDR.probe_check.launches)
+    before = (TFM.ft_matmul.launches, TDR.probe_check.launches, TMP.mla_prefill.launches)
     _, ts, _, tc = _state()
     and_g, or_g = TE.fault_mask_grids(TE.fault_meta_grid(ts, tc))
     TFM.ft_matmul(torch.ones((3, 5)), torch.ones((5, 7)), and_g, or_g)
     TDR.probe_check(torch.ones((2, 8), dtype=torch.int32), torch.ones((8, 4), dtype=torch.int32),
                     torch.zeros((2, 4), dtype=torch.int32))
-    assert (TFM.ft_matmul.launches, TDR.probe_check.launches) == before == (0, 0)
+    q, kv = torch.ones((1, 4, 2, 192)), torch.ones((1, 4, 2, 256))
+    TMP.mla_prefill(q[..., :128], q[..., 128:], kv[..., :128], torch.ones((1, 4, 64)), kv[..., 128:], 0.1)
+    assert (TFM.ft_matmul.launches, TDR.probe_check.launches, TMP.mla_prefill.launches) == before == (0, 0, 0)
     assert _build._LIBS == {}
-    assert sorted(_build.sources()) == ["dppu_recompute", "ft_matmul", "os_array_matmul", "probe_check"]
+    assert sorted(_build.sources()) == ["dppu_recompute", "ft_matmul", "mla_prefill", "os_array_matmul", "probe_check"]
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
